@@ -1,0 +1,230 @@
+"""The composed NVSF neural field (counterpart of
+``nvsf_tpu/models/field.py``): separate LiDAR / camera encoder branches
+(K-planes + 4D hash grid), a shared flow field and sigma net, LiDAR
+intensity and ray-drop heads, a camera color head.
+
+The ±1-frame temporal warp is always computed and blended with boundary
+masks, as in the JAX package. The warped hash re-queries carry no gradient
+(the reference's ``torch.no_grad``); the flow field learns through the
+warped K-planes only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from nvsf_torch.models.encodings import (FREQ_DEG12_DIM, SH_DEG4_DIM,
+                                         frequency_encode, sh_encode_deg4)
+from nvsf_torch.models.flow import FlowField
+from nvsf_torch.models.hash_grid import HashGrid4D
+from nvsf_torch.models.mlp import MLP
+from nvsf_torch.models.planes import Planes4D
+
+
+class _TruncExp(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
+def trunc_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp with its gradient taken at clamp(x, -15, 15)."""
+    return _TruncExp.apply(x)
+
+
+@dataclass(frozen=True)
+class FieldSpec:
+    """Hyperparameters of the field; same names and defaults as
+    ``nvsf_tpu.models.field.NVSFFieldSpec``."""
+    min_resolution: int = 32
+    n_levels_plane: int = 4
+    n_features_per_level_plane: int = 8
+    base_resolution: int = 512
+    max_resolution: int = 32768
+    time_resolution: int = 8
+    n_levels_hash: int = 8
+    n_features_per_level_hash: int = 4
+    log2_hashmap_size: int = 19
+    hash_size_dynamic: Tuple[int, int, int] = (15, 13, 13)
+    num_layers_flow: int = 3
+    hidden_dim_flow: int = 64
+    flow_n_levels: int = 16
+    flow_n_features_per_level: int = 8
+    flow_base_resolution: int = 32
+    flow_max_resolution: int = 8192
+    flow_log2_hashmap_size: int = 18
+    num_layers_sigma: int = 2
+    hidden_dim_sigma: int = 64
+    geo_feat_dim: int = 15
+    num_layers_lidar: int = 3
+    hidden_dim_lidar: int = 64
+    num_layers_color: int = 3
+    hidden_dim_color: int = 64
+    out_color_dim: int = 3
+    out_lidar_color_dim: int = 2
+    num_frames: int = 51
+    bound: float = 1.0
+
+
+SLOW_MODULES = ("flow", "intensity_net", "raydrop_net")
+
+
+class NVSFField(nn.Module):
+    """Parameter names follow the JAX params tree (``bridge.py``)."""
+
+    def __init__(self, spec: FieldSpec = FieldSpec(), generator=None,
+                 table_grad_precision: str = "f32"):
+        super().__init__()
+        self.spec = spec
+        # rounding of hash-table gradient updates before their f32 sum:
+        # "bf16" for bf16 training steps, as the TPU kernel rounds them
+        self.table_grad_precision = table_grad_precision
+        s = spec
+
+        def planes():
+            return Planes4D(
+                output_dim=s.n_features_per_level_plane,
+                resolution=(s.min_resolution,) * 3 + (s.time_resolution,),
+                multiscale_res=tuple(2 ** n for n in range(s.n_levels_plane)),
+                generator=generator)
+
+        def hashes():
+            return HashGrid4D(
+                base_resolution=s.base_resolution,
+                max_resolution=s.max_resolution,
+                time_resolution=s.time_resolution, n_levels=s.n_levels_hash,
+                n_features_per_level=s.n_features_per_level_hash,
+                log2_hashmap_size=s.log2_hashmap_size,
+                hash_size_dynamic=tuple(s.hash_size_dynamic),
+                generator=generator)
+
+        self.planes_lidar = planes()
+        self.hash_lidar = hashes()
+        self.planes_camera = planes()
+        self.hash_camera = hashes()
+        self.flow = FlowField(
+            num_layers=s.num_layers_flow, hidden_dim=s.hidden_dim_flow,
+            n_levels=s.flow_n_levels,
+            n_features_per_level=s.flow_n_features_per_level,
+            base_resolution=s.flow_base_resolution,
+            max_resolution=s.flow_max_resolution,
+            log2_hashmap_size=s.flow_log2_hashmap_size, generator=generator)
+        feature_dim = (self.planes_lidar.n_output_dims
+                       + self.hash_lidar.n_output_dims_static
+                       + self.hash_lidar.n_output_dims_dynamic)
+        self.sigma_net = MLP(feature_dim, s.hidden_dim_sigma,
+                             1 + s.geo_feat_dim, s.num_layers_sigma,
+                             generator=generator)
+        self.intensity_net = MLP(FREQ_DEG12_DIM + s.geo_feat_dim,
+                                 s.hidden_dim_lidar, 1, s.num_layers_lidar,
+                                 generator=generator)
+        self.raydrop_net = MLP(FREQ_DEG12_DIM + s.geo_feat_dim,
+                               s.hidden_dim_lidar, 1, s.num_layers_lidar,
+                               generator=generator)
+        self.color_net = MLP(SH_DEG4_DIM + s.geo_feat_dim,
+                             s.hidden_dim_color, s.out_color_dim,
+                             s.num_layers_color, generator=generator)
+
+    def lr_groups(self):
+        """(base, slow) parameter lists: flow / intensity / raydrop train at
+        0.1x the learning rate (``network_dynamic.py:335-357``)."""
+        base, slow = [], []
+        for name, p in self.named_parameters():
+            (slow if name.split(".")[0] in SLOW_MODULES else base).append(p)
+        return base, slow
+
+    # ------------------------------------------------------------------
+    def _scalar_time(self, t, like):
+        return torch.as_tensor(t, dtype=torch.float32,
+                               device=like.device).reshape(())
+
+    def flow_at(self, x, t, compute_dtype=torch.float32):
+        """x: [N, 3] in [-bound, bound]; scalar t -> forward/backward flow."""
+        b = self.spec.bound
+        xn = (x + b) / (2 * b)
+        t = self._scalar_time(t, x)
+        xt = torch.cat([xn, t.expand(xn.shape[0], 1)], dim=-1)
+        f = self.flow(xt, compute_dtype, self.table_grad_precision)
+        return {"flow_forward": f[:, :3], "flow_backward": f[:, 3:]}
+
+    def density(self, x, t, cal_lidar_color=False,
+                compute_dtype=torch.float32, skip_warp=False):
+        """x: [N, 3] in [-bound, bound]; scalar t in [0, 1] ->
+        {"sigma": [N], "geo_feat": [N, geo_feat_dim]}.
+
+        ``skip_warp`` drops the flow and the ±1-frame blend: the cheaper
+        query of the occupancy refresh."""
+        branch = "lidar" if cal_lidar_color else "camera"
+        hashes = getattr(self, f"hash_{branch}")
+        planes = getattr(self, f"planes_{branch}")
+        prec = self.table_grad_precision
+        nf = self.spec.num_frames
+        b = self.spec.bound
+
+        xn = (x + b) / (2 * b)
+        t = self._scalar_time(t, x)
+        frame_idx = torch.floor(t * (nf - 1))
+        N = xn.shape[0]
+        hash_s = hashes.apply_static(xn, prec)
+        xt = torch.cat([xn, t.expand(N, 1)], dim=-1)
+
+        if skip_warp:
+            hash_d = hashes.apply_dynamic(xn, t, prec)
+            plane_s = planes.apply_static(xt)
+            plane_d = planes.apply_dynamic(xt)
+        else:
+            flow = self.flow(xt, compute_dtype, prec)
+            # warp times are (frame_idx ± 1) / num_frames, as upstream
+            t1 = (frame_idx + 1) / nf
+            t2 = (frame_idx - 1) / nf
+            x1 = xn + flow[:, :3]
+            x2 = xn + flow[:, 3:]
+            has_next = frame_idx < nf - 1
+            has_prev = frame_idx > 0
+            hash_d, hash_1, hash_2 = hashes.apply_dynamic_fused3(
+                xn, x1, x2, t, t1, t2, prec)
+            ts3 = torch.stack([t, t1, t2])
+            xts = torch.cat([torch.stack([xn, x1, x2]),
+                             ts3[:, None, None].expand(3, N, 1)], dim=-1)
+            plane_s = planes.apply_static(xt)
+            plane_d, plane_1, plane_2 = planes.apply_dynamic_multi(xts)
+            hash_1 = torch.where(has_next, hash_1, hash_d)
+            plane_1 = torch.where(has_next, plane_1, plane_d)
+            hash_2 = torch.where(has_prev, hash_2, hash_d)
+            plane_2 = torch.where(has_prev, plane_2, plane_d)
+            plane_d = 0.5 * plane_d + 0.25 * (plane_1 + plane_2)
+            hash_d = 0.5 * hash_d + 0.25 * (hash_1 + hash_2)
+
+        h = self.sigma_net(torch.cat([plane_s, plane_d, hash_s, hash_d], -1),
+                           compute_dtype).to(torch.float32)
+        return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
+
+    def color(self, x, d, geo_feat, cal_lidar_color=False, mask=None,
+              compute_dtype=torch.float32):
+        """d: [N, 3] view dirs in [-1, 1] -> LiDAR [N, 2] (raydrop,
+        intensity) or camera [N, 3] rgb, after a sigmoid."""
+        dn = (d + 1.0) / 2.0
+        if cal_lidar_color:
+            inp = torch.cat([frequency_encode(dn, 12),
+                             geo_feat.to(torch.float32)], -1)
+            h = torch.cat([self.raydrop_net(inp, compute_dtype),
+                           self.intensity_net(inp, compute_dtype)], -1)
+        else:
+            inp = torch.cat([sh_encode_deg4(dn),
+                             geo_feat.to(torch.float32)], -1)
+            h = self.color_net(inp, compute_dtype)
+        h = torch.sigmoid(h.to(torch.float32))
+        if mask is not None:
+            h = torch.where(mask[:, None], h, 0.0)
+        return h

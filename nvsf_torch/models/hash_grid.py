@@ -1,0 +1,298 @@
+"""Multi-resolution hash-grid encodings (counterpart of
+``nvsf_tpu/models/hash_grid.py``).
+
+Tables keep the reference's features-major layout [F, L*T] (all levels'
+tables concatenated along columns), so every lookup of an encoding is one
+``table_gather`` whose backward is the segment-add kernel. Levels whose dense
+grid fits in T entries are indexed densely, finer levels through the
+instant-ngp spatial hash. Within a step the query time is a scalar, so the
+time-bin lerp and the Lagrange feature-basis blend are folded into the table
+before the gather (``folded_table``, ``lagrange_fold_table``).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from nvsf_torch.ops.gather import table_gather
+
+_PRIMES = (1, 2654435761, 805459861, 3674653429)
+_LOW32 = 0xFFFFFFFF
+
+
+def level_resolutions(base_resolution: int, max_resolution: int,
+                      n_levels: int):
+    """Per-level grid resolutions with tcnn's geometric spacing."""
+    if n_levels == 1:
+        return [int(base_resolution)]
+    s = math.exp2(math.log2(max_resolution / base_resolution) / (n_levels - 1))
+    return [int(math.floor(base_resolution * (s ** l)))
+            for l in range(n_levels)]
+
+
+def lagrange_basis(t: torch.Tensor, num_basis: int) -> torch.Tensor:
+    """Lagrange basis weights [num_basis] at scalar time t over the nodes
+    linspace(0, 1, num_basis)."""
+    nodes = [i / (num_basis - 1) for i in range(num_basis)]
+    out = []
+    for j in range(num_basis):
+        basis = torch.ones((), dtype=torch.float32, device=t.device)
+        for m in range(num_basis):
+            if m != j:
+                basis = basis * (t - nodes[m]) / (nodes[j] - nodes[m])
+        out.append(basis)
+    return torch.stack(out)
+
+
+def lagrange_fold_table(table: torch.Tensor, t: torch.Tensor,
+                        num_basis: int) -> torch.Tensor:
+    """[F, C] with rows in ``num_basis`` chunks of F/num_basis -> the
+    basis-blended [F/num_basis, C]."""
+    F, C = table.shape
+    tb = table.reshape(num_basis, F // num_basis, C)
+    return torch.tensordot(lagrange_basis(t, num_basis), tb, dims=1)
+
+
+def _uniform(shape, lo, hi, generator):
+    return torch.rand(shape, generator=generator) * (hi - lo) + lo
+
+
+@dataclass(frozen=True)
+class HashEncoding:
+    """One multi-resolution hash encoding over D-dim inputs in [0, 1]^D."""
+    dim: int = 3
+    n_levels: int = 8
+    n_features_per_level: int = 4
+    log2_hashmap_size: int = 19
+    base_resolution: int = 512
+    max_resolution: int = 32768
+
+    @property
+    def table_size(self) -> int:
+        return 1 << self.log2_hashmap_size
+
+    @property
+    def resolutions(self):
+        return level_resolutions(self.base_resolution, self.max_resolution,
+                                 self.n_levels)
+
+    @property
+    def n_output_dims(self) -> int:
+        return self.n_levels * self.n_features_per_level
+
+    @property
+    def n_cols(self) -> int:
+        return self.n_levels * self.table_size
+
+    def init(self, generator=None) -> torch.Tensor:
+        """tcnn's U(-1e-4, 1e-4), stored [F, L*T]."""
+        return _uniform((self.n_features_per_level, self.n_cols), -1e-4,
+                        1e-4, generator)
+
+    def level_cols_weights(self, x: torch.Tensor):
+        """x: [N, D] in [0, 1] -> (cols [L*C*N] int32 global column ids,
+        wc [L, C, N] multilinear corner weights)."""
+        D, L, T = self.dim, self.n_levels, self.table_size
+        dev = x.device
+        offs = np.stack(np.meshgrid(*([np.arange(2)] * D), indexing="ij"),
+                        axis=-1).reshape(-1, D)
+        offs = torch.as_tensor(offs, dtype=torch.int64, device=dev)  # [C, D]
+        res = torch.as_tensor(self.resolutions, dtype=torch.int64,
+                              device=dev)
+        dense = torch.as_tensor([(r + 1) ** D <= T for r in self.resolutions],
+                                device=dev)
+        level_offs = torch.arange(L, dtype=torch.int64, device=dev) * T
+
+        pos = x.to(torch.float32)[:, None, :] \
+            * res.to(torch.float32)[None, :, None]            # [N, L, D]
+        c0f = torch.floor(pos)
+        w = pos - c0f
+        corners = c0f.long()[:, :, None, :] + offs[None, None]  # [N, L, C, D]
+        corners = torch.minimum(corners.clamp_min(0),
+                                res[None, :, None, None])
+        idx_dense = corners[..., 0]
+        stride = torch.ones_like(res)
+        for d in range(1, D):
+            stride = stride * (res + 1)
+            idx_dense = idx_dense + corners[..., d] * stride[None, :, None]
+        # uint32 wraparound of the reference hash: products are exact in
+        # int64 (corner < 2^16, prime < 2^32), so keep their low 32 bits
+        h = (corners[..., 0] * _PRIMES[0]) & _LOW32
+        for d in range(1, D):
+            h = h ^ ((corners[..., d] * _PRIMES[d]) & _LOW32)
+        idx_hash = h & (T - 1)
+        idx = torch.where(dense[None, :, None], idx_dense, idx_hash)
+        cols = idx + level_offs[None, :, None]                # [N, L, C]
+        cols = cols.permute(1, 2, 0).reshape(-1).to(torch.int32)
+
+        wt = w.permute(1, 2, 0)                               # [L, D, N]
+        wc = None
+        for d in range(D):
+            wd = torch.where(offs[None, :, d:d + 1] == 1,
+                             wt[:, None, d, :], 1.0 - wt[:, None, d, :])
+            wc = wd if wc is None else wc * wd                # [L, C, N]
+        return cols, wc
+
+    def interp(self, table: torch.Tensor, cols: torch.Tensor,
+               wc: torch.Tensor, precision: str = "f32") -> torch.Tensor:
+        """Gather + corner-weight reduce: table [F', cols_total] ->
+        [N, L*F'] level-major."""
+        vals = table_gather(table, cols, precision=precision)
+        return _reduce_corners(vals, wc)
+
+    def apply(self, table: torch.Tensor, x: torch.Tensor,
+              precision: str = "f32") -> torch.Tensor:
+        cols, wc = self.level_cols_weights(x)
+        return self.interp(table, cols, wc, precision)
+
+
+def _reduce_corners(vals: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
+    """vals [F', L*C*N] gathered corners, wc [L, C, N] -> [N, L*F']."""
+    L, C, N = wc.shape
+    v = vals.reshape(-1, L, C, N)
+    feat = (v * wc[None]).sum(dim=2)                          # [F', L, N]
+    return feat.permute(2, 1, 0).reshape(N, -1)
+
+
+@dataclass(frozen=True)
+class HashGridT:
+    """Time-binned 2D hash grids with the bin lerp and the Lagrange basis
+    folded into one [F/B, L*T] table per scalar t."""
+    time_resolution: int = 8
+    base_resolution: int = 512
+    max_resolution: int = 32768
+    n_levels: int = 8
+    n_features_per_level: int = 4
+    log2_hashmap_size: int = 14
+    num_basis: int = 4
+
+    @property
+    def grid(self) -> HashEncoding:
+        return HashEncoding(dim=2, n_levels=self.n_levels,
+                            n_features_per_level=self.n_features_per_level,
+                            log2_hashmap_size=self.log2_hashmap_size,
+                            base_resolution=self.base_resolution,
+                            max_resolution=self.max_resolution)
+
+    @property
+    def n_output_dims(self) -> int:
+        return self.n_levels * self.n_features_per_level // self.num_basis
+
+    def init(self, generator=None) -> torch.Tensor:
+        return torch.stack([self.grid.init(generator)
+                            for _ in range(self.time_resolution)])
+
+    def folded_table(self, tables: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+        """[TR, F, L*T] -> [F/B, L*T] at scalar t."""
+        idx = t * (self.time_resolution - 1)
+        i1 = torch.floor(idx).long()
+        i2 = torch.clamp(i1 + 1, max=self.time_resolution - 1)
+        w2 = idx - i1.to(torch.float32)
+        # bins are read with clamped indices (a warp time before the first
+        # frame is negative), the weight keeps the unclamped bin, as JAX's
+        # dynamic indexing does
+        last = self.time_resolution - 1
+        t1 = tables.index_select(0, i1.clamp(0, last).reshape(1))[0]
+        t2 = tables.index_select(0, i2.clamp(0, last).reshape(1))[0]
+        blended = (1.0 - w2) * t1 + w2 * t2
+        return lagrange_fold_table(blended, t, self.num_basis)
+
+
+class HashGrid4D(nn.Module):
+    """Static 3D hash + three time-binned 2D planes (xyt, xzt, yzt)."""
+
+    PLANE_KEYS = ("dyn_xyt", "dyn_xzt", "dyn_yzt")
+    PLANE_AXES = ((0, 1), (0, 2), (1, 2))
+
+    def __init__(self, base_resolution=512, max_resolution=32768,
+                 time_resolution=8, n_levels=8, n_features_per_level=4,
+                 log2_hashmap_size=19,
+                 hash_size_dynamic: Tuple[int, int, int] = (15, 13, 13),
+                 generator=None):
+        super().__init__()
+        self.static_grid = HashEncoding(
+            dim=3, n_levels=n_levels,
+            n_features_per_level=n_features_per_level,
+            log2_hashmap_size=log2_hashmap_size,
+            base_resolution=base_resolution, max_resolution=max_resolution)
+        self.dynamic_grids = tuple(
+            HashGridT(time_resolution=time_resolution,
+                      base_resolution=base_resolution,
+                      max_resolution=max_resolution, n_levels=n_levels,
+                      n_features_per_level=n_features_per_level,
+                      log2_hashmap_size=hash_size_dynamic[i])
+            for i in range(3))
+        self.static = nn.Parameter(self.static_grid.init(generator))
+        for key, g in zip(self.PLANE_KEYS, self.dynamic_grids):
+            setattr(self, key, nn.Parameter(g.init(generator)))
+
+    @property
+    def n_output_dims_static(self) -> int:
+        return self.static_grid.n_output_dims
+
+    @property
+    def n_output_dims_dynamic(self) -> int:
+        return self.dynamic_grids[0].n_output_dims * 3
+
+    def apply_static(self, x, precision="f32"):
+        return self.static_grid.apply(self.static, x, precision)
+
+    def _dynamic_cols_weights(self, x):
+        cols_all, wcs, offset = [], [], 0
+        for g, (a, b) in zip(self.dynamic_grids, self.PLANE_AXES):
+            cols, wc = g.grid.level_cols_weights(x[:, (a, b)])
+            cols_all.append(cols + offset)
+            wcs.append(wc)
+            offset += g.grid.n_cols
+        return torch.cat(cols_all), wcs
+
+    def _dynamic_folded(self, t):
+        return torch.cat([g.folded_table(getattr(self, k), t)
+                          for g, k in zip(self.dynamic_grids,
+                                          self.PLANE_KEYS)], dim=1)
+
+    @staticmethod
+    def _assemble(vals, wcs):
+        outs, p = [], 0
+        for wc in wcs:
+            n = wc.numel()
+            outs.append(_reduce_corners(vals[:, p:p + n], wc))
+            p += n
+        return torch.cat(outs, dim=-1)
+
+    def apply_dynamic(self, x, t, precision="f32"):
+        """x: [N, 3] in [0,1]; scalar t -> [N, n_output_dims_dynamic]."""
+        cols, wcs = self._dynamic_cols_weights(x)
+        table = self._dynamic_folded(t)
+        return self._assemble(table_gather(table, cols, precision=precision),
+                              wcs)
+
+    def apply_dynamic_fused3(self, x, x1, x2, t, t1, t2, precision="f32"):
+        """The t-query and both temporal-warp queries in one gather. Only the
+        t-query carries gradient; the warp queries' positions, folded tables
+        and gathered values are detached (the reference's no_grad
+        re-queries)."""
+        cols0, wcs0 = self._dynamic_cols_weights(x)
+        tb0 = self._dynamic_folded(t)
+        with torch.no_grad():
+            cols1, wcs1 = self._dynamic_cols_weights(x1.detach())
+            cols2, wcs2 = self._dynamic_cols_weights(x2.detach())
+            tb1 = self._dynamic_folded(t1)
+            tb2 = self._dynamic_folded(t2)
+        S = tb0.shape[1]
+        table = torch.cat([tb0, tb1, tb2], dim=1)
+        n = cols0.shape[0]
+        cols = torch.cat([cols0, cols1 + S, cols2 + 2 * S])
+        vals = table_gather(table, cols, n_grad=n, grad_cols_T=S,
+                            precision=precision)
+        out0 = self._assemble(vals[:, :n], wcs0)
+        out1 = self._assemble(vals[:, n:2 * n].detach(), wcs1)
+        out2 = self._assemble(vals[:, 2 * n:].detach(), wcs2)
+        return out0, out1, out2

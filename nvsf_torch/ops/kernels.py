@@ -1,0 +1,126 @@
+"""Build, load and count the package's hand-written CUDA kernels.
+
+The sources in ``nvsf_torch/csrc/*.cu`` have a plain C interface. At first
+use they are compiled with ``nvcc`` for ``sm_90a`` into one shared library
+under ``build/nvsf_torch_kernels/<hash of sources and flags>/`` at the root
+of the checkout, and loaded with ``ctypes``. Nothing is built when a module
+is imported, so the package imports on machines without ``nvcc``.
+
+``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
+where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "nvsf_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES = {"segment_add": 0, "multihot_fwd": 0, "multihot_bwd": 0}
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+_SIGNATURES = {
+    "nvsf_segment_add": (_P, _P, _I64, _P, _I64, _I64, _I, _I, _P),
+    "nvsf_multihot_fwd": (_P, _I64, _P, _P, _P, _I64, _I, _I, _I, _I64, _P),
+    "nvsf_multihot_bwd": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                          _I64, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info = {}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (nvcc on PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _build() -> Path:
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    so = out_dir / "libnvsf_torch_kernels.so"
+    if so.exists():
+        build_info.update(path=str(so), seconds=0.0, log="(cached)")
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".tmp.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, so)
+    build_info.update(path=str(so), seconds=secs, log=log)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.nvsf_error_string.argtypes = (ctypes.c_int,)
+            lib.nvsf_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.nvsf_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, t, dtype, ndim: int) -> None:
+    """Check a tensor handed to a kernel: device, dtype, rank, layout."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,469 @@
+"""Trainer: the joint LiDAR + camera training step, the epoch loop, EMA and
+the occupancy refresh (counterpart of ``nvsf_tpu/train/trainer.py``).
+
+The step samples rays on the device (random, or patch with error-map
+weighting on patch epochs), renders each enabled branch through the
+occupancy-compacted renderer, sums the losses (LiDAR depth / intensity /
+ray-drop, chamfer, scene flow, URF line of sight, camera RGB), runs Adam
+and updates the error maps. Semantics follow the JAX step
+(``nvsf_tpu/train/trainer.py:383-611``, separate-branch path):
+
+  - Adam(0.9, 0.99, eps 1e-15) after zeroing NaN gradients, flow /
+    intensity / ray-drop at 0.1x the learning rate, decay
+    0.1 ** min(step / iters, 1);
+  - EMA(0.95) of the parameters once per epoch;
+  - patch epochs every ``change_patch_size_epoch`` epochs (counted from
+    1), error-map sampling on patch epochs only;
+  - the occupancy grids refreshed by the host every
+    ``occ_update_interval`` steps, outside the step.
+
+Every random draw of a step can be injected through ``draws`` (see
+``loss_and_grads``), so tests can replay the JAX package's draws.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from nvsf_torch.config import NVSFConfig
+from nvsf_torch.data import sampler
+from nvsf_torch.data.dataset import SceneData
+from nvsf_torch.lib import rays as raylib
+from nvsf_torch.models.field import FieldSpec, NVSFField
+from nvsf_torch.ops.occupancy import OccupancyGrid
+from nvsf_torch.render.renderer import Renderer
+from nvsf_torch.train import losses as L
+from nvsf_tpu.lib import convert
+from nvsf_tpu.lib import pointcloud as pclib
+
+
+def field_spec_from_config(cfg: NVSFConfig) -> FieldSpec:
+    return FieldSpec(
+        min_resolution=cfg.min_resolution,
+        base_resolution=cfg.base_resolution,
+        max_resolution=cfg.max_resolution,
+        time_resolution=cfg.time_resolution,
+        n_levels_plane=cfg.n_levels_plane,
+        n_features_per_level_plane=cfg.n_features_per_level_plane,
+        n_levels_hash=cfg.n_levels_hash,
+        n_features_per_level_hash=cfg.n_features_per_level_hash,
+        log2_hashmap_size=cfg.log2_hashmap_size,
+        hash_size_dynamic=tuple(cfg.hash_size_dynamic),
+        num_layers_flow=cfg.num_layers_flow,
+        hidden_dim_flow=cfg.hidden_dim_flow,
+        flow_n_levels=cfg.flow_n_levels,
+        flow_n_features_per_level=cfg.flow_n_features_per_level,
+        flow_base_resolution=cfg.flow_base_resolution,
+        flow_max_resolution=cfg.flow_max_resolution,
+        flow_log2_hashmap_size=cfg.flow_log2_hashmap_size,
+        num_layers_sigma=cfg.num_layers_sigma,
+        hidden_dim_sigma=cfg.hidden_dim_sigma,
+        geo_feat_dim=cfg.geo_feat_dim,
+        num_layers_lidar=cfg.num_layers_color,
+        hidden_dim_lidar=cfg.hidden_dim_lidar,
+        num_layers_color=cfg.num_layers_color,
+        num_frames=cfg.num_frames,
+        bound=cfg.bound)
+
+
+def compute_dtype_of(cfg: NVSFConfig) -> torch.dtype:
+    """bf16 when the config trains in half precision (``--fp16``)."""
+    if cfg.fp16 or cfg.compute_dtype == "bfloat16":
+        return torch.bfloat16
+    return torch.float32
+
+
+def make_optimizer(cfg: NVSFConfig, field: NVSFField):
+    """Adam(0.9, 0.99, eps 1e-15) with the slow group at 0.1x and the
+    decay 0.1 ** min(step / iters, 1); call ``zero_nan_grads`` before each
+    step. Returns (optimizer, scheduler)."""
+    base, slow = field.lr_groups()
+    opt = torch.optim.Adam([{"params": base, "lr": cfg.lr},
+                            {"params": slow, "lr": 0.1 * cfg.lr}],
+                           betas=(0.9, 0.99), eps=1e-15)
+    iters = max(cfg.iters, 1)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda s: 0.1 ** min(s / iters, 1.0))
+    return opt, sched
+
+
+def zero_nan_grads(params) -> None:
+    """NaN gradients become 0, and a parameter without a gradient gets a
+    zero one, so that Adam moves every parameter every step (optax's
+    ``zero_nans`` + ``scale_by_adam`` over the whole tree)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        else:
+            torch.nan_to_num_(p.grad, nan=0.0, posinf=float("inf"),
+                              neginf=float("-inf"))
+
+
+@dataclass
+class EpochStats:
+    loss: float
+    parts: Dict[str, float]
+
+
+_UNPORTED = {
+    "joint_fusion": "the fused joint-render path",
+    "grad_norm_smooth": "the patch structural regularizers",
+    "spatial_smooth": "the patch structural regularizers",
+    "tv_loss": "the patch structural regularizers",
+    "grad_loss": "the patch structural regularizers",
+}
+
+
+class Trainer:
+    """Host loop around the training step, on one ``device``."""
+
+    def __init__(self, cfg: NVSFConfig, scene: SceneData, seed: int = 0,
+                 device="cpu"):
+        for flag, what in _UNPORTED.items():
+            if getattr(cfg, flag):
+                raise NotImplementedError(
+                    f"{flag}=True needs {what}, not ported to nvsf_torch")
+        if cfg.render_mode != "occupancy":
+            raise NotImplementedError(
+                "nvsf_torch trains in render_mode='occupancy' only")
+        if cfg.color_space == "linear":
+            raise NotImplementedError("color_space='linear' is not ported")
+        self.cfg = cfg
+        self.scene = scene
+        self.device = dev = torch.device(device)
+
+        def t(a, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        n = len(scene)
+        d = {"times": t(scene.times)}
+        if cfg.enable_lidar:
+            d["poses_lidar"] = t(scene.poses_lidar)
+            if scene.images_lidar is not None:
+                self._check_far_plane(scene.images_lidar)
+                d["panos_flat"] = t(scene.images_lidar).reshape(n, -1, 3)
+        if cfg.enable_rgb and scene.poses is not None:
+            d["poses"] = t(scene.poses)
+            if scene.images is not None:
+                d["images_flat"] = t(scene.images).reshape(
+                    n, -1, scene.images.shape[-1])
+            if scene.image_depths is not None:
+                d["image_depths_flat"] = t(scene.image_depths).reshape(n, -1)
+            d["intrinsics"] = t(scene.intrinsics)
+        self.data = d
+
+        self.pc_data = None
+        if cfg.flow_loss and cfg.enable_lidar \
+                and scene.images_lidar is not None:
+            self.pc_data = self._process_pointclouds()
+
+        self.occ = OccupancyGrid(grid_size=cfg.occ_grid_size,
+                                 bound=cfg.bound, decay=cfg.occ_decay,
+                                 update_fraction=cfg.occ_update_fraction)
+        init_gen = torch.Generator().manual_seed(seed)
+        self.field = NVSFField(
+            field_spec_from_config(cfg), generator=init_gen,
+            table_grad_precision="bf16" if cfg.fp16 else "f32").to(dev)
+        self.renderer = Renderer(
+            field=self.field, bound=cfg.bound,
+            density_scale=cfg.density_scale, min_near=cfg.min_near,
+            min_near_lidar=cfg.min_near_lidar,
+            lidar_max_depth=cfg.lidar_max_depth,
+            active_sensor=cfg.active_sensor, num_steps=cfg.num_steps,
+            compute_dtype=compute_dtype_of(cfg), occ_jitter=cfg.occ_jitter,
+            occ_delta_clamp=cfg.occ_delta_clamp)
+        self.optimizer, self.scheduler = make_optimizer(cfg, self.field)
+        self.ema = {k: p.detach().clone()
+                    for k, p in self.field.named_parameters()}
+        self.error_map = self.error_map_rgb = None
+        self.occ_grid_lidar = self.occ_grid_rgb = None
+        if cfg.enable_lidar:
+            self.error_map = torch.ones(
+                (n, scene.H_lidar // 2, scene.W_lidar // 2), device=dev)
+            self.occ_grid_lidar = self.occ.init(dev)
+        if cfg.enable_rgb:
+            self.error_map_rgb = torch.ones(
+                (n, scene.H // 4, scene.W // 4), device=dev)
+            self.occ_grid_rgb = self.occ.init(dev)
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self._order_rng = np.random.default_rng(seed)
+        self.epoch = 0
+        self.global_step = 0
+        # tick 0 counts as refreshed: the first refresh fires once
+        # global_step crosses occ_update_interval
+        self._last_occ_update = 0
+        self.occ_refresh_count = 0
+
+    # ------------------------------------------------------------------
+    def _check_far_plane(self, panos: np.ndarray) -> None:
+        """Refuse a LiDAR far plane below the 99th percentile of the GT
+        depths: those returns could never be supervised (the signature of
+        near/far scaled twice)."""
+        hit = panos[..., 0] > 0.5
+        if hit.any():
+            q99 = float(np.quantile(panos[..., 2][hit], 0.99))
+            if q99 > float(self.cfg.lidar_max_depth):
+                raise ValueError(
+                    f"lidar_max_depth={self.cfg.lidar_max_depth:.4g} "
+                    f"(scaled) truncates the GT depth distribution "
+                    f"(p99={q99:.4g}): >=1% of returns lie beyond the far "
+                    "plane and can never be supervised. Near/far are "
+                    "scaled by NVSFConfig.finalize() exactly once — pass "
+                    "METERS through finalize(), or scaled values without "
+                    "it.")
+
+    def _process_pointclouds(self):
+        """pano -> LiDAR points -> ground removal -> scaled world clouds,
+        padded, indexed by global frame."""
+        cfg, scene = self.cfg, self.scene
+        clouds = [np.zeros((0, 3), np.float32)] * scene.num_frames
+        valid = np.zeros(scene.num_frames, bool)
+        for i in range(len(scene)):
+            pano = scene.images_lidar[i]
+            gt_depth = pano[:, :, 2] * pano[:, :, 0] / cfg.scale
+            pts = convert.pano_to_lidar(gt_depth, scene.intrinsics_lidar,
+                                        scene.intrinsics_hoz_lidar)
+            points, _ground = pclib.point_removal(
+                pts, dist_min=1.0,
+                dist_max=0.75 * cfg.lidar_max_depth / cfg.scale,
+                z_limit=[-2.5, 4])
+            pw = points * cfg.scale
+            pw = (scene.poses_lidar[i] @ np.hstack(
+                [pw, np.ones((len(pw), 1), np.float32)]).T).T[:, :3]
+            gfi = int(round(float(scene.times[i]) * (cfg.num_frames - 1)))
+            clouds[gfi] = pw.astype(np.float32)
+            valid[gfi] = True
+        arr, mask = pclib.pad_pointclouds(clouds)
+        dev = self.device
+        return {"pc": torch.as_tensor(arr, device=dev),
+                "pc_mask": torch.as_tensor(mask, device=dev),
+                "pc_valid": torch.as_tensor(valid, device=dev)}
+
+    def patch_enabled(self) -> bool:
+        patch = tuple(self.cfg.change_patch_size_lidar)
+        return bool(patch) and patch[0] > 1
+
+    # ------------------------------------------------------------------
+    def loss_and_grads(self, fi: int, patch: bool,
+                       draws: Optional[dict] = None):
+        """Forward and backward of one step on frame ``fi``; leaves the
+        gradients in ``.grad``. Returns (loss, parts, error-map inputs).
+
+        ``draws`` replaces the step's random draws: ``lidar_rays`` /
+        ``rgb_rays`` (sampler draws), ``lidar_render`` / ``rgb_render``
+        (``z_noise`` [N, T], ``jitter_u`` [N, K]) and ``bg`` [N, 3]."""
+        cfg, scene, data = self.cfg, self.scene, self.data
+        dev, gen, rend = self.device, self.generator, self.renderer
+        draws = draws or {}
+        Hl, Wl = scene.H_lidar, scene.W_lidar
+        H, W = scene.H, scene.W
+        patch_hw = tuple(cfg.change_patch_size_lidar) if patch else (1, 1)
+        use_em = cfg.use_error_map and patch
+        crit = {k: L.make_criterion(getattr(cfg, a), cfg.scale)
+                for k, a in (("rgb", "rgb_loss"), ("depth", "depth_loss"),
+                             ("rgb_depth", "rgb_depth_loss"),
+                             ("raydrop", "raydrop_loss"),
+                             ("intensity", "intensity_loss"))}
+        t = data["times"][fi]
+        parts, em_inputs = {}, {}
+        total = torch.zeros((), device=dev)
+
+        if cfg.enable_lidar:
+            inds = sampler.sample_indices(
+                Hl, Wl, cfg.num_rays_lidar,
+                patch_size=patch_hw if patch else 1,
+                error_map=self.error_map[fi] if use_em else None,
+                use_error_map=use_em, generator=gen,
+                draws=draws.get("lidar_rays"), device=dev)
+            ro, rd = raylib.get_lidar_rays(
+                data["poses_lidar"][fi], inds, Hl, Wl,
+                scene.intrinsics_lidar, scene.intrinsics_hoz_lidar)
+            gt = data["panos_flat"][fi][inds]
+        if cfg.enable_rgb:
+            inds_c = sampler.sample_indices(
+                H, W, cfg.num_rays, patch_size=cfg.patch_size,
+                error_map=self.error_map_rgb[fi] if use_em else None,
+                use_error_map=use_em, generator=gen,
+                draws=draws.get("rgb_rays"), device=dev)
+            ro_c, rd_c = raylib.get_camera_rays(data["poses"][fi], inds_c,
+                                                H, W, data["intrinsics"])
+            gt_rgb = data["images_flat"][fi][inds_c]
+            bg = 1.0
+            if gt_rgb.shape[-1] == 4:
+                bg = draws.get("bg")
+                if bg is None:
+                    bg = torch.rand((cfg.num_rays, 3), generator=gen,
+                                    device=dev)
+                gt_rgb = gt_rgb[..., :3] * gt_rgb[..., 3:] \
+                    + bg * (1 - gt_rgb[..., 3:])
+
+        pc = None
+        if cfg.flow_loss and self.pc_data is not None:
+            gfi = torch.round(t * (cfg.num_frames - 1)).long()
+            pc = self.pc_data["pc"][gfi]
+            pcm = self.pc_data["pc_mask"][gfi]
+
+        def render(branch, ro, rd, lidar, K, **kw):
+            dr = draws.get(f"{branch}_render", {})
+            return rend.run_occupancy(
+                ro, rd, t, self.occ, getattr(self, f"occ_grid_{branch}"),
+                num_steps_occ=K, cal_lidar_color=lidar, perturb=True,
+                generator=gen, z_noise=dr.get("z_noise"),
+                jitter_u=dr.get("jitter_u"), occ_thresh=cfg.occ_thresh, **kw)
+
+        if cfg.enable_lidar:
+            out = render("lidar", ro, rd, True, cfg.num_steps_occ)
+        if cfg.enable_rgb:
+            out_c = render("rgb", ro_c, rd_c, False,
+                           cfg.num_steps_occ_rgb or cfg.num_steps_occ,
+                           bg_color=bg)
+
+        if cfg.enable_lidar:
+            gt_raydrop = gt[:, 0]
+            gt_intensity = gt[:, 1] * gt_raydrop
+            gt_depth = gt[:, 2] * gt_raydrop
+            pred_raydrop = out["image_lidar"][:, 0]
+            pred_intensity = out["image_lidar"][:, 1] * gt_raydrop
+            pred_depth = out["depth_lidar"] * gt_raydrop
+            if cfg.raydrop_loss == "bce":
+                pred_raydrop = torch.sigmoid(pred_raydrop)
+            lidar_loss, lparts = L.lidar_losses(
+                pred_raydrop, pred_intensity, pred_depth, gt_raydrop,
+                gt_intensity, gt_depth, crit, cfg.alpha_d, cfg.alpha_i,
+                cfg.alpha_r, cfg.smooth_factor)
+            parts.update(lparts)
+            total = total + lidar_loss.sum()
+            cd = L.lidar_chamfer_loss(rd, pred_depth, gt_depth, cfg.scale)
+            parts["chamfer"] = cd
+            total = total + cd
+            if pc is not None:
+                fl = self.field.flow_at(pc, t)
+                pcd = self.pc_data
+                nxt = torch.clamp(gfi + 1, max=cfg.num_frames - 1)
+                prv = torch.clamp(gfi - 1, min=0)
+                has_next = (gfi < cfg.num_frames - 1) & pcd["pc_valid"][nxt]
+                has_prev = (gfi > 0) & pcd["pc_valid"][prv]
+                fwd = L.flow_consistency_loss(pc, pcm, pcd["pc"][nxt],
+                                              pcd["pc_mask"][nxt],
+                                              fl["flow_forward"])
+                bwd = L.flow_consistency_loss(pc, pcm, pcd["pc"][prv],
+                                              pcd["pc_mask"][prv],
+                                              fl["flow_backward"])
+                fl_loss = torch.where(has_next, fwd, 0.0) \
+                    + torch.where(has_prev, bwd, 0.0)
+                parts["flow"] = fl_loss
+                total = total + fl_loss
+            if cfg.use_urf_loss:
+                urf = L.urf_line_of_sight_loss(out["weights"], out["z_vals"],
+                                               gt_depth, self.global_step,
+                                               cfg.iters)
+                parts["urf"] = urf
+                total = total + urf
+            em_inputs["lidar"] = (inds, lidar_loss.detach())
+
+        if cfg.enable_rgb:
+            rgb_l = cfg.alpha_rgb * crit["rgb"](out_c["image"],
+                                                gt_rgb[..., :3])
+            parts["rgb"] = rgb_l.sum()
+            total = total + rgb_l.sum()
+            if cfg.use_rgbd_loss and "image_depths_flat" in data:
+                gt_d = data["image_depths_flat"][fi][inds_c] * cfg.scale
+                max_d = 80 * cfg.scale
+                gt_d = torch.clamp(gt_d, max=max_d)
+                pd_c = torch.clamp(out_c["depth"], max=max_d)
+                m = (gt_d > 0).to(torch.float32)
+                rd_l = cfg.alpha_rd * crit["rgb_depth"](pd_c * m, gt_d * m)
+                parts["rgb_d"] = rd_l.sum()
+                total = total + rd_l.sum()
+            em_inputs["rgb"] = (inds_c, rgb_l.sum(-1).detach())
+
+        loss = L.scrub_loss(total)
+        loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
+            em_inputs
+
+    def train_step(self, fi: int, patch: bool,
+                   draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+        """One optimizer step on frame ``fi``; returns detached scalar
+        metrics (no host synchronisation)."""
+        params = list(self.field.parameters())
+        self.optimizer.zero_grad(set_to_none=False)
+        loss, parts, em_inputs = self.loss_and_grads(fi, patch, draws)
+        zero_nan_grads(params)
+        self.optimizer.step()
+        self.scheduler.step()
+        with torch.no_grad():
+            scene = self.scene
+            if "lidar" in em_inputs:
+                inds, err = em_inputs["lidar"]
+                self.error_map[fi] = sampler.update_error_map(
+                    self.error_map[fi], inds, err, scene.H_lidar,
+                    scene.W_lidar)
+            if "rgb" in em_inputs:
+                inds, err = em_inputs["rgb"]
+                self.error_map_rgb[fi] = sampler.update_error_map(
+                    self.error_map_rgb[fi], inds, err, scene.H, scene.W)
+        self.global_step += 1
+        return {"loss": loss, **parts}
+
+    # ------------------------------------------------------------------
+    def train_one_epoch(self, order=None) -> EpochStats:
+        """One pass over ``order`` (default: a seeded permutation of the
+        frames); a patch epoch when ``epoch`` is a positive multiple of
+        ``change_patch_size_epoch``."""
+        cfg = self.cfg
+        if order is None:
+            order = self._order_rng.permutation(len(self.scene))
+        order = np.asarray(order, np.int64)
+        use_patch = (self.patch_enabled() and self.epoch > 0
+                     and self.epoch % cfg.change_patch_size_epoch == 0)
+        sums = {}
+        for fi in order:
+            metrics = self.train_step(int(fi), use_patch)
+            for k, v in metrics.items():
+                sums[k] = sums[k] + v if k in sums else v
+            self.maybe_update_occ()
+        with torch.no_grad():
+            decay = cfg.ema_decay
+            for k, p in self.field.named_parameters():
+                self.ema[k].mul_(decay).add_(p.detach(), alpha=1 - decay)
+        self.maybe_update_occ()
+        parts = {k: float(v) / len(order) for k, v in sums.items()}
+        return EpochStats(loss=parts["loss"], parts=parts)
+
+    def _occ_refresh_times(self, generator):
+        """Stratified, jittered query times over the scene's time span."""
+        S = max(int(self.cfg.occ_time_samples), 1)
+        times = np.asarray(self.scene.times)
+        t_lo, t_hi = float(times.min()), float(times.max())
+        strata = torch.arange(S, dtype=torch.float32,
+                              device=self.device) / S
+        u = torch.rand((S,), generator=generator, device=self.device) / S
+        return t_lo + (t_hi - t_lo) * (strata + u)
+
+    def maybe_update_occ(self) -> None:
+        """Refresh the occupancy grids when global_step has crossed a
+        multiple of occ_update_interval since the last refresh."""
+        cfg = self.cfg
+        if cfg.occ_update_interval <= 0:
+            return
+        tick = self.global_step // cfg.occ_update_interval
+        if tick == self._last_occ_update:
+            return
+        self._last_occ_update = tick
+        self.occ_refresh_count += 1
+        gen = torch.Generator(device=self.device).manual_seed(
+            0xACC + self.global_step)
+        ts = self._occ_refresh_times(gen)
+        for branch, lidar in (("lidar", True), ("rgb", False)):
+            grid = getattr(self, f"occ_grid_{branch}")
+            if grid is None:
+                continue
+            setattr(self, f"occ_grid_{branch}", self.occ.update(
+                grid, lambda p, tt, lidar=lidar: self.field.density(
+                    p, tt, cal_lidar_color=lidar, skip_warp=True)["sigma"],
+                ts, generator=gen))

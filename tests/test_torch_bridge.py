@@ -1,0 +1,115 @@
+"""The bridge between nvsf_tpu's params trees and the port, and the port's
+independence from JAX."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+
+from nvsf_tpu.models.field import NVSFFieldSpec
+from nvsf_torch import bridge
+from nvsf_torch.models.field import FieldSpec, NVSFField
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPEC = dict(n_levels_hash=4, n_features_per_level_hash=8,
+            log2_hashmap_size=12, hash_size_dynamic=(11, 10, 10),
+            flow_n_levels=4, flow_log2_hashmap_size=10, num_frames=4)
+
+
+def _assert_trees_equal(a, b):
+    la, ta = jax.tree.flatten(a)
+    lb, tb = jax.tree.flatten(b)
+    assert ta == tb
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(x, y)
+
+
+def test_init_tree_round_trips_bit_exactly():
+    tree = jax.tree.map(np.asarray,
+                        NVSFFieldSpec(**SPEC).init(jax.random.PRNGKey(0)))
+    field = NVSFField(FieldSpec(**SPEC))
+    bridge.load_field(field, tree)
+    _assert_trees_equal(bridge.field_to_tree(field), tree)
+
+
+def test_trainer_state_round_trips():
+    """Params, EMA, occupancy grids and error maps of a checkpoint payload
+    (``nvsf_tpu/train/checkpoint.py`` layout) load and export unchanged."""
+    from nvsf_tpu.config import NVSFConfig
+    from nvsf_torch.data.synthetic import (SyntheticSceneSpec,
+                                           make_synthetic_scene)
+    from nvsf_torch.train.trainer import Trainer
+
+    scene = make_synthetic_scene(SyntheticSceneSpec(
+        num_frames=4, H_lidar=8, W_lidar=16, H=8, W=8, max_depth=25.0))
+    s = 1 / 26
+    cfg = NVSFConfig.from_dict(dict(
+        enable_lidar=True, enable_rgb=True, scale=s,
+        min_near_lidar=0.5 * s, lidar_max_depth=25.0 * s, min_near=0.5 * s,
+        render_mode="occupancy", occ_grid_size=8, bound=1.0, **SPEC))
+    tr = Trainer(cfg, scene)
+    rng = np.random.default_rng(0)
+    jspec = NVSFFieldSpec(**SPEC)
+    payload = {
+        "model": jax.tree.map(np.asarray, jspec.init(jax.random.PRNGKey(1))),
+        "ema": jax.tree.map(np.asarray, jspec.init(jax.random.PRNGKey(2))),
+        "global_step": 7,
+    }
+    for k in ("error_map", "error_map_rgb", "occ_grid_lidar",
+              "occ_grid_rgb"):
+        payload[k] = rng.uniform(size=getattr(tr, k).shape) \
+            .astype(np.float32)
+    bridge.load_trainer_state(tr, payload)
+    out = bridge.export_trainer_state(tr)
+    assert out["global_step"] == 7
+    _assert_trees_equal(out["model"], payload["model"])
+    _assert_trees_equal(out["ema"], payload["ema"])
+    for k in ("error_map", "error_map_rgb", "occ_grid_lidar",
+              "occ_grid_rgb"):
+        np.testing.assert_array_equal(out[k], payload[k])
+
+
+def _imported_modules(path):
+    """Every module name an ``import`` statement of the file names."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield from (node.module + "." + a.name for a in node.names)
+
+
+def test_port_imports_no_jax():
+    """Every module of nvsf_torch, and chip_smoke, imports with jax and
+    optax made unimportable. chip_smoke names no module of nvsf_tpu, and
+    nvsf_torch names only its JAX-free modules."""
+    allowed = ("nvsf_tpu.config.", "nvsf_tpu.lib.convert",
+               "nvsf_tpu.lib.pose", "nvsf_tpu.lib.pointcloud")
+    smoke = [m for m in _imported_modules(os.path.join(REPO, "chip_smoke.py"))
+             if m.split(".")[0] == "nvsf_tpu"]
+    assert not smoke, smoke
+    port = [m for d, _, files in os.walk(os.path.join(REPO, "nvsf_torch"))
+            for f in files if f.endswith(".py")
+            for m in _imported_modules(os.path.join(d, f))
+            if m.split(".")[0] == "nvsf_tpu" and not m.startswith(allowed)]
+    assert not port, port
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for m in ('jax', 'jaxlib', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "import nvsf_torch\n"
+        "for info in pkgutil.walk_packages(nvsf_torch.__path__, "
+        "'nvsf_torch.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "import nvsf_torch.train.trainer, chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

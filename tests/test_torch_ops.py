@@ -1,0 +1,229 @@
+"""The port's ops against the JAX package on the CPU: segment-add (the
+plain version of the B1/B2 kernels), the table gather and its gradient,
+multihot sampling (plain version of the B3/B4 kernels) with and without
+the weight gradient, occupancy compaction and refresh, and the training
+chamfer. Inputs are made with numpy from a seed and handed to both.
+
+Tolerances: forward rtol 1e-4 / atol 1e-5 and gradients atol 1e-4 x
+max|reference| — f32 sums taken in another order (XLA's scatter and
+reductions against PyTorch's index_add_ and sum) differ by a few ulps of
+the sum of magnitudes of their terms.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nvsf_tpu.ops import chamfer as jchamfer
+from nvsf_tpu.ops import multihot as jmh
+from nvsf_tpu.ops.gather import table_gather as jgather
+from nvsf_tpu.ops.occupancy import OccupancyGridSpec
+from nvsf_tpu.ops.segsum import _segment_add_xla
+from nvsf_torch.ops import chamfer as tchamfer
+from nvsf_torch.ops import kernels
+from nvsf_torch.ops import multihot as tmh
+from nvsf_torch.ops.gather import table_gather
+from nvsf_torch.ops.occupancy import OccupancyGrid
+from nvsf_torch.ops.segsum import segment_add_fm
+
+FWD = dict(rtol=1e-4, atol=1e-5)
+
+
+def _grad_close(got, ref):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(np.asarray(got), ref, rtol=0,
+                               atol=1e-4 * max(np.abs(ref).max(), 1e-12))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_segment_add_matches_scatter(precision):
+    rng = np.random.default_rng(0)
+    T, M, F = 3000, 20000, 8
+    cols = rng.integers(0, T, M).astype(np.int32)
+    vals = rng.standard_normal((F, M)).astype(np.float32)
+    ref_vals = jnp.asarray(vals)
+    if precision == "bf16":   # the TPU kernel's rounding of each update
+        ref_vals = ref_vals.astype(jnp.bfloat16).astype(jnp.float32)
+    ref = _segment_add_xla(jnp.asarray(cols), ref_vals, T)
+    before = dict(kernels.LAUNCHES)
+    got = segment_add_fm(torch.from_numpy(cols), torch.from_numpy(vals), T,
+                         precision)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FWD)
+    assert kernels.LAUNCHES == before   # CPU tensors take the plain path
+
+
+def test_segment_add_reads_column_slices():
+    """The gather's prefix gradient passes vals[:, :n] without a copy."""
+    rng = np.random.default_rng(1)
+    vals = torch.from_numpy(rng.standard_normal((4, 500)).astype(np.float32))
+    cols = torch.from_numpy(rng.integers(0, 64, 300).astype(np.int32))
+    got = segment_add_fm(cols, vals[:, :300], 64, "f32")
+    ref = _segment_add_xla(jnp.asarray(cols.numpy()),
+                           jnp.asarray(vals[:, :300].numpy()), 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FWD)
+
+
+@pytest.mark.parametrize("n_grad", [None, 700])
+def test_table_gather_matches_jax_grad(n_grad):
+    rng = np.random.default_rng(2)
+    F, T, M = 4, 600, 2000
+    table = rng.standard_normal((F, T)).astype(np.float32)
+    grad_T = 200 if n_grad else None
+    cols = rng.integers(0, T, M).astype(np.int32)
+    if n_grad:   # the gradient-carrying prefix lies in [0, grad_T)
+        cols[:n_grad] = rng.integers(0, grad_T, n_grad)
+    ct = rng.standard_normal((F, M)).astype(np.float32)
+
+    def jloss(tb):
+        return jnp.sum(jgather(tb, jnp.asarray(cols), n_grad=n_grad,
+                               grad_cols_T=grad_T) * ct)
+
+    jv, jg = jax.value_and_grad(jloss)(jnp.asarray(table))
+    t = torch.from_numpy(table).requires_grad_(True)
+    out = table_gather(t, torch.from_numpy(cols), n_grad=n_grad,
+                       grad_cols_T=grad_T, precision="f32")
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  table[:, cols])
+    (out * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(float(out.mul(torch.from_numpy(ct)).sum()),
+                               float(jv), rtol=1e-4)
+    _grad_close(t.grad.numpy(), jg)
+    if n_grad:
+        assert not t.grad[:, grad_T:].any()
+
+
+def _multihot_inputs(seed, Q=2, S=3, C=4, W=64, F=4, Np=300):
+    rng = np.random.default_rng(seed)
+    tables = rng.standard_normal((F, Q * S * W)).astype(np.float32)
+    cols = rng.integers(0, W, (Q, S, C, Np)).astype(np.int32)
+    ws = rng.uniform(0, 1, (Q, S, C, Np)).astype(np.float32)
+    g = rng.standard_normal((Q, S, F, Np)).astype(np.float32)
+    return tables, cols, ws, g
+
+
+@pytest.mark.parametrize("need_dw", [True, False], ids=["dw", "table-only"])
+def test_multihot_matches_jax(need_dw):
+    W = 64
+    tables, cols, ws, g = _multihot_inputs(3, W=W)
+    # the JAX reference's XLA path is what its CPU tests run
+    ref_out = jmh.multihot_sample(jnp.asarray(tables), jnp.asarray(cols),
+                                  jnp.asarray(ws), W, use_pallas=False,
+                                  need_dw=need_dw)
+    _, vjp = jax.vjp(lambda tb, w: jmh.multihot_sample(
+        tb, jnp.asarray(cols), w, W, use_pallas=False, need_dw=need_dw),
+        jnp.asarray(tables), jnp.asarray(ws))
+    ref_dt, ref_dw = vjp(jnp.asarray(g))
+
+    tt = torch.from_numpy(tables).requires_grad_(True)
+    tw = torch.from_numpy(ws).requires_grad_(True)
+    out = tmh.multihot_sample(tt, torch.from_numpy(cols), tw, W,
+                              need_dw=need_dw)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out),
+                               **FWD)
+    out.backward(torch.from_numpy(g))
+    _grad_close(tt.grad.numpy(), ref_dt)
+    if need_dw:
+        _grad_close(tw.grad.numpy(), ref_dw)
+    else:
+        assert not tw.grad.any() and not np.asarray(ref_dw).any()
+
+
+def test_multihot_plain_backward_matches_autograd():
+    """The explicit plain backward (what the CUDA kernel is compared with
+    on the card) equals autograd through the plain forward."""
+    W = 32
+    tables, cols, ws, g = _multihot_inputs(4, Q=3, S=2, C=2, W=W)
+    tt = torch.from_numpy(tables).requires_grad_(True)
+    tw = torch.from_numpy(ws).requires_grad_(True)
+    tmh.multihot_fwd_plain(tt, torch.from_numpy(cols), tw, W).backward(
+        torch.from_numpy(g))
+    dt, dw = tmh.multihot_bwd_plain(torch.from_numpy(tables),
+                                    torch.from_numpy(cols),
+                                    torch.from_numpy(ws),
+                                    torch.from_numpy(g), W, True)
+    np.testing.assert_allclose(dt.numpy(), tt.grad.numpy(), **FWD)
+    np.testing.assert_allclose(dw.numpy(), tw.grad.numpy(), **FWD)
+
+
+def test_occupancy_compaction_matches_jax():
+    """A random grid (same positions on both sides, so no cell can flip)
+    with rays that see between 0 and T occupied candidates."""
+    rng = np.random.default_rng(5)
+    G, N, T, K = 16, 64, 48, 12
+    grid = np.where(rng.uniform(size=(G, G, G)) < 0.4, 5.0,
+                    0.0).astype(np.float32)
+    ro = rng.uniform(-0.5, 0.5, (N, 3)).astype(np.float32)
+    rd = rng.standard_normal((N, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    z = np.sort(rng.uniform(0.01, 1.2, (N, T)), -1).astype(np.float32)
+    grid[:2] = 0.0
+    jspec = OccupancyGridSpec(grid_size=G)
+    tspec = OccupancyGrid(grid_size=G)
+    jz, jv = jspec.compact_samples(jnp.asarray(grid), jnp.asarray(ro),
+                                   jnp.asarray(rd), jnp.asarray(z), K, 1.0)
+    tz, tv = tspec.compact_samples(*map(torch.from_numpy,
+                                        (grid, ro, rd, z)), K, 1.0)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+    m = np.asarray(jv).sum(-1)
+    assert (m == 0).any() and (m == K).any() and ((m > 0) & (m < K)).any()
+
+
+def test_occupancy_update_matches_jax():
+    """One refresh with the JAX draws (unique cells: duplicate writes land
+    in an unspecified order in both frameworks) and a density function
+    shared as numpy."""
+    G = 16
+    jspec = OccupancyGridSpec(grid_size=G, update_fraction=4)
+    tspec = OccupancyGrid(grid_size=G, update_fraction=4)
+    M = G ** 3 // 4
+    rng = np.random.default_rng(6)
+    cells = rng.permutation(G ** 3)[:M].astype(np.int32)
+    u = rng.uniform(size=(M, 3)).astype(np.float32)
+    grid = rng.uniform(0, 10, (G, G, G)).astype(np.float32)
+    times = np.array([0.1, 0.6], np.float32)
+    key = jax.random.PRNGKey(3)
+    # feed the same draws to JAX by patching its two draw calls
+    orig_randint, orig_uniform = jax.random.randint, jax.random.uniform
+    try:
+        jax.random.randint = lambda *a, **k: jnp.asarray(cells)
+        jax.random.uniform = lambda *a, **k: jnp.asarray(u)
+        ref = jspec.update(jnp.asarray(grid), key,
+                           lambda p, t: jnp.abs(jnp.sin(7 * p).sum(-1))
+                           * (1 + t), times=jnp.asarray(times))
+    finally:
+        jax.random.randint, jax.random.uniform = orig_randint, orig_uniform
+    got = tspec.update(torch.from_numpy(grid),
+                       lambda p, t: torch.abs(torch.sin(7 * p).sum(-1))
+                       * (1 + t), torch.from_numpy(times),
+                       cells=torch.from_numpy(cells),
+                       jitter_u=torch.from_numpy(u))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FWD)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_chamfer_matches_jax(masked):
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((300, 3)).astype(np.float32)
+    b = rng.standard_normal((200, 3)).astype(np.float32)
+    am = rng.uniform(size=300) < 0.8 if masked else None
+    bm = rng.uniform(size=200) < 0.8 if masked else None
+
+    def jloss(x):
+        d1, d2 = jchamfer.chamfer_distance(
+            x, jnp.asarray(b), None if am is None else jnp.asarray(am),
+            None if bm is None else jnp.asarray(bm), block_m=64,
+            use_pallas=False)
+        return jnp.sum(d1) + 2.0 * jnp.sum(d2)
+
+    jv, jg = jax.value_and_grad(jloss)(jnp.asarray(a))
+    ta = torch.from_numpy(a).requires_grad_(True)
+    d1, d2 = tchamfer.chamfer_distance(
+        ta, torch.from_numpy(b), None if am is None else torch.from_numpy(am),
+        None if bm is None else torch.from_numpy(bm), block_m=64)
+    v = d1.sum() + 2.0 * d2.sum()
+    v.backward()
+    np.testing.assert_allclose(float(v), float(jv), rtol=1e-4)
+    _grad_close(ta.grad.numpy(), jg)
