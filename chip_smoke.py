@@ -11,7 +11,11 @@ Phases, one line each:
                  shapes its path gives it (the training step's for B1-B4,
                  the eval frame's 67,980 x 67,980 points for B5), with its
                  time, the plain version's, one PyTorch library call's
-                 and the card's bound for the same work.
+                 and the card's bound for the same work. Its "step" rows
+                 (run after phase 4, on its trainer) hold B1 and B4, and
+                 B3's forward, to the same checks and times on the inputs
+                 of one real training step, captured by wrapping the
+                 kernels' wrappers for that step.
   4. slice    -- the joint LiDAR + camera training step (the bench.py
                  "joint-tuned" rung at full width on the synthetic scene):
                  Trainer.train_one_epoch for one random and one patch
@@ -56,9 +60,14 @@ from nvsf_torch.ops import kernels
 from nvsf_torch.ops import multihot as mh
 from nvsf_torch.ops import segsum
 
-# Relative error bound of an f32 sum taken in any order, per unit of the
-# sum of the magnitudes of its terms: n_terms * 2^-24 stays below it for up
-# to ~160 terms per output; the slot sums here have a few dozen at most.
+# Relative error bound of an f32 sum, per unit of the sum of the magnitudes
+# of its terms: k additions in sequence round by at most k * 2^-24 of it,
+# under 1e-5 for k up to ~160. The random inputs put a few dozen terms in a
+# slot. On a step's ray-ordered samples a column of the narrowest K-planes
+# (32 wide) takes ~16k terms: the multihot kernels add them in warp runs
+# (a tree), one shared atomic per run and one global atomic per block, but a
+# plain version in f32 adds them one by one and strays further than the
+# kernel, so the multihot checks evaluate the plain version in f64.
 SUM_RTOL = 1e-5
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
@@ -180,32 +189,33 @@ def _segment_add_cases(gen, dev):
     return cases
 
 
+def segment_add_row(variant, cols, vals, T, prec):
+    """B1 (bf16) or B2 (f32) on one input against its plain version, with
+    its time, the plain version's, index_add's and the bound."""
+    F, M = vals.shape
+    got = segsum.segment_add_cuda(cols, vals, T, prec)
+    ref = segsum.segment_add_plain(cols, vals, T, prec)
+    bnd = segsum.segment_add_plain(cols, vals.abs(), T, "f32")
+    err, tol, ok = compare(f"segment_add[{prec}]", got, ref, bnd)
+    zeros = torch.zeros((F, T), device=vals.device)
+    b_ms, b_by = bound(4 * M + 4 * F * M + 4 * F * T, F * M)
+    return dict(
+        variant=f"{variant} {prec} M={M} F={F} T={T} ld={vals.stride(0)}",
+        max_abs_err=err, tol=tol, ok=ok,
+        ms=cuda_ms(lambda: segsum.segment_add_cuda(cols, vals, T, prec)),
+        plain_ms=cuda_ms(lambda: segsum.segment_add_plain(cols, vals, T,
+                                                          prec)),
+        # index_add into zeros: the f32 sum, without B1's rounding
+        library_ms=cuda_ms(lambda: torch.index_add(zeros, 1, cols, vals)),
+        bound_ms=b_ms, bound_by=b_by)
+
+
 def check_segment_add(gen, dev):
     """B1 (bf16) and B2 (its f32 flag) at each table-gradient shape of the
     step."""
-    rows = []
-    for name, cols, vals, T in _segment_add_cases(gen, dev):
-        F, M = vals.shape
-        for prec in ("bf16", "f32"):
-            got = segsum.segment_add_cuda(cols, vals, T, prec)
-            ref = segsum.segment_add_plain(cols, vals, T, prec)
-            bnd = segsum.segment_add_plain(cols, vals.abs(), T, "f32")
-            err, tol, ok = compare(f"segment_add[{prec}]", got, ref, bnd)
-            zeros = torch.zeros((F, T), device=dev)
-            b_ms, b_by = bound(4 * M + 4 * F * M + 4 * F * T, F * M)
-            rows.append(dict(
-                variant=f"{name} {prec} M={M} F={F} T={T} "
-                        f"ld={vals.stride(0)}",
-                max_abs_err=err, tol=tol, ok=ok,
-                ms=cuda_ms(lambda: segsum.segment_add_cuda(cols, vals, T,
-                                                           prec)),
-                plain_ms=cuda_ms(lambda: segsum.segment_add_plain(
-                    cols, vals, T, prec)),
-                # index_add into zeros: the f32 sum, without B1's rounding
-                library_ms=cuda_ms(lambda: torch.index_add(zeros, 1, cols,
-                                                           vals)),
-                bound_ms=b_ms, bound_by=b_by))
-    return rows
+    return [segment_add_row(name, cols, vals, T, prec)
+            for name, cols, vals, T in _segment_add_cases(gen, dev)
+            for prec in ("bf16", "f32")]
 
 
 def _multihot_inputs(Q, S, C, W, F, Np, gen, dev, lerp):
@@ -239,6 +249,60 @@ def _bags(tables, cols, ws, g, W, need_dw):
     return idx, psw, weight, psw_g, gb
 
 
+def multihot_rows(desc, tables, cols, ws, g, W, need_dw):
+    """B3 and B4 on one input against their plain versions (evaluated in
+    f64, see SUM_RTOL), with their times, the plain versions' (in f32),
+    embedding_bag's (forward and backward) and the bounds: (forward row,
+    backward row)."""
+    Q, S, C, Np = cols.shape
+    F = tables.shape[0]
+    t64, w64, g64 = tables.double(), ws.double(), g.double()
+    got = mh.multihot_fwd_cuda(tables, cols, ws, W)
+    ref = mh.multihot_fwd_plain(t64, cols, w64, W)
+    bnd = mh.multihot_fwd_plain(tables.abs(), cols, ws.abs(), W)
+    err, tol, ok = compare("multihot_fwd", got, ref, bnd)
+    idx, psw, weight, psw_g, gb = _bags(tables, cols, ws, g, W, need_dw)
+    n_tab, n_cw = tables.numel(), cols.numel()
+    n_out = Q * S * F * Np
+    b_ms, b_by = bound(4 * n_tab + 8 * n_cw + 4 * n_out, 2 * n_cw * F)
+    fwd = dict(
+        variant=desc, max_abs_err=err, tol=tol, ok=ok,
+        ms=cuda_ms(lambda: mh.multihot_fwd_cuda(tables, cols, ws, W)),
+        plain_ms=cuda_ms(lambda: mh.multihot_fwd_plain(tables, cols, ws, W)),
+        library_ms=cuda_ms(lambda: nnf.embedding_bag(
+            idx, weight.detach(), mode="sum", per_sample_weights=psw)),
+        bound_ms=b_ms, bound_by=b_by)
+    dt, dw = mh.multihot_bwd_cuda(tables, cols, ws, g, W, need_dw)
+    rdt, rdw = mh.multihot_bwd_plain(t64, cols, w64, g64, W, need_dw)
+    del t64, w64, g64
+    bdt, bdw = mh.multihot_bwd_plain(tables.abs(), cols, ws.abs(), g.abs(),
+                                     W, need_dw)
+    err, tol, ok = compare("multihot_bwd.dT", dt, rdt, bdt)
+    if need_dw:
+        e2, t2, ok2 = compare("multihot_bwd.dw", dw, rdw, bdw)
+        if e2 / t2 > err / tol:
+            err, tol = e2, t2
+        ok = ok and ok2
+    bag = nnf.embedding_bag(idx, weight, mode="sum", per_sample_weights=psw_g)
+    wrt = [weight, psw_g] if need_dw else [weight]
+    # reads cols, ws, g (and the tables for dw); writes dT (and dw)
+    b_ms, b_by = bound(
+        8 * n_cw + 4 * n_out + 4 * n_tab
+        + (4 * n_tab + 4 * n_cw if need_dw else 0),
+        2 * n_cw * F * (2 if need_dw else 1))
+    bwd = dict(
+        variant=desc + (" need_dw" if need_dw else " table-only"),
+        max_abs_err=err, tol=tol, ok=ok,
+        ms=cuda_ms(lambda: mh.multihot_bwd_cuda(tables, cols, ws, g, W,
+                                                need_dw)),
+        plain_ms=cuda_ms(lambda: mh.multihot_bwd_plain(tables, cols, ws, g,
+                                                       W, need_dw)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            bag, wrt, gb, retain_graph=True)),
+        bound_ms=b_ms, bound_by=b_by)
+    return fwd, bwd
+
+
 def check_multihot(gen, dev):
     """B3 and B4 at the two plane shapes of the step, each at the LiDAR
     (N = 2048 x 96) and the camera (N = 2048 x 128) sample count: coarse
@@ -249,55 +313,14 @@ def check_multihot(gen, dev):
     shapes = [dict(Q=1, S=6, C=4, W=4096, need_dw=False, lerp=False),
               dict(Q=3, S=12, C=2, W=256, need_dw=True, lerp=True)]
     for sh, N in [(sh, N) for sh in shapes for N in (2048 * 96, 2048 * 128)]:
-        Q, S, C, W, need_dw = sh["Q"], sh["S"], sh["C"], sh["W"], \
-            sh["need_dw"]
+        Q, S, C, W = sh["Q"], sh["S"], sh["C"], sh["W"]
         tables, cols, ws, g = _multihot_inputs(Q, S, C, W, 8, N, gen, dev,
                                                sh["lerp"])
-        desc = f"Q={Q} S={S} C={C} W={W} F=8 Np={cols.shape[-1]}"
-        got = mh.multihot_fwd_cuda(tables, cols, ws, W)
-        ref = mh.multihot_fwd_plain(tables, cols, ws, W)
-        bnd = mh.multihot_fwd_plain(tables.abs(), cols, ws.abs(), W)
-        err, tol, ok = compare("multihot_fwd", got, ref, bnd)
-        idx, psw, weight, psw_g, gb = _bags(tables, cols, ws, g, W, need_dw)
-        n_tab, n_cw = tables.numel(), cols.numel()
-        n_out = Q * S * 8 * cols.shape[-1]
-        b_ms, b_by = bound(4 * n_tab + 8 * n_cw + 4 * n_out, 2 * n_cw * 8)
-        fwd_rows.append(dict(
-            variant=desc, max_abs_err=err, tol=tol, ok=ok,
-            ms=cuda_ms(lambda: mh.multihot_fwd_cuda(tables, cols, ws, W)),
-            plain_ms=cuda_ms(lambda: mh.multihot_fwd_plain(tables, cols, ws,
-                                                           W)),
-            library_ms=cuda_ms(lambda: nnf.embedding_bag(
-                idx, weight.detach(), mode="sum", per_sample_weights=psw)),
-            bound_ms=b_ms, bound_by=b_by))
-        dt, dw = mh.multihot_bwd_cuda(tables, cols, ws, g, W, need_dw)
-        rdt, rdw = mh.multihot_bwd_plain(tables, cols, ws, g, W, need_dw)
-        bdt, bdw = mh.multihot_bwd_plain(tables.abs(), cols, ws.abs(),
-                                         g.abs(), W, need_dw)
-        err, tol, ok = compare("multihot_bwd.dT", dt, rdt, bdt)
-        if need_dw:
-            e2, t2, ok2 = compare("multihot_bwd.dw", dw, rdw, bdw)
-            if e2 / t2 > err / tol:
-                err, tol = e2, t2
-            ok = ok and ok2
-        bag = nnf.embedding_bag(idx, weight, mode="sum",
-                              per_sample_weights=psw_g)
-        wrt = [weight, psw_g] if need_dw else [weight]
-        # reads cols, ws, g (and the tables for dw); writes dT (and dw)
-        b_ms, b_by = bound(
-            8 * n_cw + 4 * n_out + 4 * n_tab
-            + (4 * n_tab + 4 * n_cw if need_dw else 0),
-            2 * n_cw * 8 * (2 if need_dw else 1))
-        bwd_rows.append(dict(
-            variant=desc + (" need_dw" if need_dw else " table-only"),
-            max_abs_err=err, tol=tol, ok=ok,
-            ms=cuda_ms(lambda: mh.multihot_bwd_cuda(tables, cols, ws, g, W,
-                                                    need_dw)),
-            plain_ms=cuda_ms(lambda: mh.multihot_bwd_plain(tables, cols, ws,
-                                                           g, W, need_dw)),
-            library_ms=cuda_ms(lambda: torch.autograd.grad(
-                bag, wrt, gb, retain_graph=True)),
-            bound_ms=b_ms, bound_by=b_by))
+        fwd, bwd = multihot_rows(
+            f"Q={Q} S={S} C={C} W={W} F=8 Np={cols.shape[-1]}",
+            tables, cols, ws, g, W, sh["need_dw"])
+        fwd_rows.append(fwd)
+        bwd_rows.append(bwd)
     return fwd_rows, bwd_rows
 
 
@@ -398,6 +421,8 @@ def check_chamfer(gen, dev):
             am = torch.rand(a.shape[0], generator=gen, device=dev) >= 0.1
             bm = torch.rand(b.shape[0], generator=gen, device=dev) >= 0.1
         st = b5_stats(*b5_compare(a, b, am, bm))
+        av = a if am is None else a[am].contiguous()
+        bv = b if bm is None else b[bm].contiguous()
         # a check that a kernel returning ~0 or off by the whole distance
         # would pass is no check: the distances must stand above the tolerance
         st["ok"] = st["ok"] and st["ref_over_tol_median"] >= 10.0
@@ -414,9 +439,10 @@ def check_chamfer(gen, dev):
             plain_ms=cuda_ms(lambda: (chamfer.min_dist2_plain(a, b, bm),
                                       chamfer.min_dist2_plain(b, a, am)),
                              reps=3),
-            library_ms=None if masked else cuda_ms(
-                lambda: (_library_min_dist2(a, b),
-                         _library_min_dist2(b, a)), reps=3),
+            # over the valid points of each cloud, selected outside the
+            # timed calls
+            library_ms=cuda_ms(lambda: (_library_min_dist2(av, bv),
+                                        _library_min_dist2(bv, av)), reps=3),
             bound_ms=b_ms, bound_by=b_by))
     return rows
 
@@ -444,6 +470,25 @@ def _fmt_teeth(st):
             f"{st['ref_over_tol_median']:.3g}")
 
 
+def report_kernels(rows, tag="kernels"):
+    """Log each row; raise if any disagrees with its plain version."""
+    bad = []
+    for name, rs in rows.items():
+        for r in rs:
+            log(tag, f"{name} [{r['variant']}]: max_abs_err "
+                     f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}) kernel "
+                     f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                     f"library {_fmt_ms(r['library_ms'])}, bound "
+                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+                     + (_fmt_teeth(r) if "err_over_tol" in r else "")
+                     + ("" if r["ok"] else "  FAILED"))
+            if not r["ok"]:
+                bad.append(f"{name}[{r['variant']}]")
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{bad}")
+
+
 def phase_kernels():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -451,22 +496,66 @@ def phase_kernels():
     rows = {"segment_add": check_segment_add(gen, dev),
             "multihot_fwd": fwd, "multihot_bwd": bwd,
             "chamfer_min_dist": check_chamfer(gen, dev)}
-    bad = []
-    for name, rs in rows.items():
-        for r in rs:
-            log("kernels", f"{name} [{r['variant']}]: max_abs_err "
-                           f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}) "
-                           f"kernel {r['ms']:.4f} ms, plain "
-                           f"{r['plain_ms']:.4f} ms, library "
-                           f"{_fmt_ms(r['library_ms'])}, bound "
-                           f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
-                           + (_fmt_teeth(r) if "err_over_tol" in r else "")
-                           + ("" if r["ok"] else "  FAILED"))
-            if not r["ok"]:
-                bad.append(f"{name}[{r['variant']}]")
-    if bad:
-        raise AssertionError(f"kernels disagree with their plain versions: "
-                             f"{bad}")
+    report_kernels(rows)
+    return rows
+
+
+def capture_step_inputs(tr, patch=False):
+    """The inputs of every B1 and B4 launch of one training step of ``tr``.
+    Both wrappers are looked up as module attributes at call time
+    (``segsum.segment_add_fm``, ``multihot._MultihotSample.backward``), so
+    wrapping the attributes for one step records each call's inputs
+    (copies, with their strides) and restoring them leaves the port as it
+    was."""
+    calls = {"segment_add": [], "multihot_bwd": []}
+    orig_sa, orig_mb = segsum.segment_add_cuda, mh.multihot_bwd_cuda
+
+    def keep(t):
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                   device=t.device).copy_(t)
+
+    def sa(cols, vals, T, precision="bf16"):
+        calls["segment_add"].append((keep(cols), keep(vals), T, precision))
+        return orig_sa(cols, vals, T, precision)
+
+    def mb(tables, cols, ws, g, W, need_dw):
+        calls["multihot_bwd"].append(
+            (*(keep(t) for t in (tables, cols, ws, g)), W, need_dw))
+        return orig_mb(tables, cols, ws, g, W, need_dw)
+
+    segsum.segment_add_cuda, mh.multihot_bwd_cuda = sa, mb
+    try:
+        tr.train_step(0, patch)
+        torch.cuda.synchronize()
+    finally:
+        segsum.segment_add_cuda, mh.multihot_bwd_cuda = orig_sa, orig_mb
+    return calls
+
+
+def phase_step_kernels(tr):
+    """Phase 3's "step" rows: B1 and B4 (and B3's forward on B4's inputs,
+    for comparison) on the inputs of one LiDAR + camera step of phase 4's
+    trainer, ray-ordered samples and all, each against its plain version
+    and timed beside its bound and library call."""
+    calls = capture_step_inputs(tr)
+    field = tr.field
+    names = {field.hash_lidar.static_grid.n_cols: "static hash",
+             field.flow.enc.n_cols: "flow hash",
+             sum(g.grid.n_cols for g in field.hash_lidar.dynamic_grids):
+             "dynamic hash n_grad prefix"}
+    rows = {"segment_add": [], "multihot_fwd": [], "multihot_bwd": []}
+    for i, (cols, vals, T, prec) in enumerate(calls["segment_add"]):
+        rows["segment_add"].append(segment_add_row(
+            f"step #{i} {names.get(T, 'table')}", cols, vals, T, prec))
+    for i, (tables, cols, ws, g, W, need_dw) in enumerate(
+            calls["multihot_bwd"]):
+        Q, S, C, Np = cols.shape
+        fwd, bwd = multihot_rows(
+            f"step #{i} Q={Q} S={S} C={C} W={W} F={tables.shape[0]} Np={Np}",
+            tables, cols, ws, g, W, need_dw)
+        rows["multihot_fwd"].append(fwd)
+        rows["multihot_bwd"].append(bwd)
+    report_kernels(rows)
     return rows
 
 
@@ -945,6 +1034,8 @@ def main():
     phase_build()
     rows = phase_kernels()
     tr, train_launches = phase_slice(smi)
+    for name, rs in phase_step_kernels(tr).items():
+        rows[name] += rs
     eval_launches = phase_eval(tr, smi)
     del tr
     torch.cuda.empty_cache()

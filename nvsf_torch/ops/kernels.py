@@ -1,7 +1,8 @@
 """Build, load and count the package's hand-written CUDA kernels.
 
-The sources in ``nvsf_torch/csrc/*.cu`` have a plain C interface. At first
-use each is compiled with ``nvcc`` for ``sm_90a`` into an object file, all
+The sources in ``nvsf_torch/csrc/*.cu`` have a plain C interface (the
+``*.cuh`` headers beside them are shared helpers). At first use each is
+compiled with ``nvcc`` for ``sm_90a`` into an object file, all
 of them at once in parallel, and the objects are linked into one shared
 library under ``build/nvsf_torch_kernels/<hash of sources and flags>/`` at
 the root of the checkout, which is loaded with ``ctypes``. Nothing is
@@ -36,7 +37,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _SIGNATURES = {
-    "nvsf_segment_add": (_P, _P, _I64, _P, _I64, _I64, _I, _I, _P),
+    "nvsf_segment_add": (_P, _P, _I64, _P, _P, _I64, _I64, _I, _I, _P),
     "nvsf_multihot_fwd": (_P, _I64, _P, _P, _P, _I64, _I, _I, _I, _I64, _P),
     "nvsf_multihot_bwd": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _I64, _P),
@@ -65,10 +66,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def _build() -> Path:
+def _build(flags=NVCC_FLAGS) -> Path:
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for s in sorted(CSRC.glob("*.cu*")):      # sources and headers
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
@@ -81,7 +82,7 @@ def _build() -> Path:
     tag = f".tmp.{os.getpid()}"
     objs = [out_dir / f"{s.stem}{tag}.o" for s in srcs]
     t0 = time.perf_counter()
-    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+    procs = [(subprocess.Popen([nvcc, *flags, "-c", "-o", str(o), str(s)],
                                stdout=subprocess.PIPE,
                                stderr=subprocess.STDOUT, text=True), s)
              for s, o in zip(srcs, objs)]
@@ -107,19 +108,26 @@ def _build() -> Path:
     return so
 
 
+def build_library(flags=NVCC_FLAGS) -> ctypes.CDLL:
+    """Build (or find in the cache) and load the kernels compiled with
+    ``flags``. The package uses ``library()``; other flags are for
+    measuring variants of the kernels (``tools/``)."""
+    lib = ctypes.CDLL(str(_build(flags)))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.nvsf_error_string.argtypes = (ctypes.c_int,)
+    lib.nvsf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.nvsf_error_string.argtypes = (ctypes.c_int,)
-            lib.nvsf_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = build_library()
     return _lib
 
 

@@ -1,9 +1,10 @@
 """Segment-add into a features-major table: the backward of a table gather.
 
 ``segment_add_fm(cols, vals, T)`` is ``zeros(F, T).index_add_(1, cols, vals)``.
-On a CUDA tensor it launches the hand-written kernel of
-``nvsf_torch/csrc/segsum.cu`` (one thread per update, f32 atomics); on a CPU
-tensor it runs the plain PyTorch version below. Counterpart of
+On a CUDA tensor it launches the hand-written kernels of
+``nvsf_torch/csrc/segsum.cu`` (one thread per update, warp-aggregated vector
+atomics into a row-major [T, F] scratch, then a transpose to [F, T]); on a
+CPU tensor it runs the plain PyTorch version below. Counterpart of
 ``nvsf_tpu/ops/segsum.py::segment_add_fm``.
 
 precision: ``"bf16"`` rounds every update to bf16 before the f32 sum, as the
@@ -25,6 +26,7 @@ import torch
 from nvsf_torch.ops import kernels
 
 PRECISIONS = ("bf16", "f32")
+MAX_F = 32    # features per slot the kernel takes (its transpose tile)
 
 
 def segment_add_plain(cols: torch.Tensor, vals: torch.Tensor, T: int,
@@ -48,13 +50,16 @@ def segment_add_cuda(cols: torch.Tensor, vals: torch.Tensor, T: int,
     F, M = vals.shape
     if cols.shape[0] != M:
         raise ValueError(f"cols has {cols.shape[0]} entries, vals {M}")
+    if F > MAX_F:
+        raise ValueError(f"kernel takes F <= {MAX_F} features, got {F}")
     if M > 1 and vals.stride(1) != 1:
         vals = vals.contiguous()
-    out = torch.zeros((F, T), dtype=torch.float32, device=vals.device)
+    rows = torch.zeros((T, F), dtype=torch.float32, device=vals.device)
+    out = torch.empty((F, T), dtype=torch.float32, device=vals.device)
     lib = kernels.library()
     rc = lib.nvsf_segment_add(cols.data_ptr(), vals.data_ptr(),
-                              vals.stride(0), out.data_ptr(), T, M, F,
-                              int(precision == "bf16"),
+                              vals.stride(0), rows.data_ptr(), out.data_ptr(),
+                              T, M, F, int(precision == "bf16"),
                               kernels.stream_of(vals))
     kernels.check(lib, rc, "nvsf_segment_add")
     kernels.LAUNCHES["segment_add"] += 1

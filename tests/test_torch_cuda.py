@@ -4,6 +4,10 @@ and skip without one; on the card run them without the JAX test setup:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
+The scatter kernels (B1, B4) are also held to their plain versions on the
+key patterns their warp aggregation and vector atomics are built for:
+runs of one column, a single column, dropped columns, ragged sizes.
+
 Tolerance: a kernel's f32 sums run in another order than the plain
 version's (atomics land in any order), so each output is held to 1e-5 of
 the sum of the magnitudes of its terms. The chamfer kernel (B5) is held to
@@ -37,41 +41,82 @@ def _close(got, ref, bound):
     assert err <= 1e-5 * float(bound.abs().max()) + 1e-7, err
 
 
+KEY_PATTERNS = ["random", "runs", "one column", "out of range"]
+
+
+def _keys(rng, pattern, shape, T):
+    """int32 columns of ``shape`` (numpy): "random" in [0, T); "runs" of
+    one column along the last axis, of random lengths 1-96 (the ray-ordered
+    samples of a training step, which the kernels aggregate in a warp); all
+    on "one column"; or "out of range": random in [-T/4, 5T/4), a fifth
+    of them outside [0, T) and dropped by the kernels."""
+    if pattern == "random":
+        return rng.integers(0, T, shape).astype(np.int32)
+    if pattern == "one column":
+        return np.full(shape, T // 3, np.int32)
+    if pattern == "out of range":
+        return rng.integers(-(T // 4), T + T // 4, shape).astype(np.int32)
+    n = shape[-1]
+    rows = [np.repeat(rng.integers(0, T, n), rng.integers(1, 97, n))[:n]
+            for _ in range(int(np.prod(shape[:-1])))]
+    return np.stack(rows).reshape(shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("F", [2, 3, 8])
+@pytest.mark.parametrize("keys", KEY_PATTERNS)
 @pytest.mark.parametrize("precision", ["bf16", "f32"])
-def test_segment_add_kernel(dev, precision):
-    g = torch.Generator(device=dev).manual_seed(0)
-    T, M, F = 50_000, 400_000, 8
-    cols = torch.randint(0, T, (M,), generator=g, device=dev,
-                         dtype=torch.int32)
-    vals = torch.randn((F, M + 100), generator=g, device=dev)[:, :M]
+def test_segment_add_kernel(dev, precision, keys, F):
+    """B1/B2 against the plain version: M a multiple of neither a warp nor
+    a block, vals a column slice of a wider tensor (row stride > M), F on
+    the float2 (2), scalar (3) and float4 (8) paths of the kernel."""
+    rng = np.random.default_rng(0)
+    T, M = 50_000, 400_003
+    cols = torch.from_numpy(_keys(rng, keys, (M,), T)).to(dev)
+    vals = torch.from_numpy(rng.standard_normal((F, M + 100))
+                            .astype(np.float32)).to(dev)[:, :M]
     n0 = kernels.LAUNCHES["segment_add"]
     got = segsum.segment_add_fm(cols, vals, T, precision)
     assert kernels.LAUNCHES["segment_add"] == n0 + 1
-    ref = segsum.segment_add_plain(cols, vals, T, precision)
-    _close(got, ref, segsum.segment_add_plain(cols, vals.abs(), T, "f32"))
+    keep = (cols >= 0) & (cols < T)     # the plain version cannot drop
+    kc, kv = cols[keep], vals[:, keep]
+    ref = segsum.segment_add_plain(kc, kv, T, precision)
+    _close(got, ref, segsum.segment_add_plain(kc, kv.abs(), T, "f32"))
 
 
-@pytest.mark.parametrize("shape", [(1, 6, 4, 4096, False),
-                                   (3, 12, 2, 256, True)],
+@pytest.mark.parametrize("F", [8, 4])
+@pytest.mark.parametrize("keys", KEY_PATTERNS)
+@pytest.mark.parametrize("need_dw", [True, False], ids=["dw", "table-only"])
+@pytest.mark.parametrize("shape", [(1, 6, 4, 4096), (3, 12, 2, 256)],
                          ids=["static-coarse", "dynamic"])
-def test_multihot_kernels(dev, shape):
-    Q, S, C, W, need_dw = shape
-    F, Np = 8, 20_000
-    g = torch.Generator(device=dev).manual_seed(1)
-    tables = torch.rand((F, Q * S * W), generator=g, device=dev)
-    cols = torch.randint(0, W, (Q, S, C, Np), generator=g, device=dev,
-                         dtype=torch.int32)
-    ws = torch.rand((Q, S, C, Np), generator=g, device=dev)
-    gr = torch.randn((Q, S, F, Np), generator=g, device=dev)
+def test_multihot_kernels(dev, shape, need_dw, keys, F):
+    """B3 and B4 against the plain versions at both plane shapes, with
+    and without the weight gradient, Np a multiple of no warp, F on the
+    backward's F = 8 path (the step's) and its path for any other F. Columns
+    outside [0, W) contribute nothing in the kernels: the reference
+    clamps them and zeroes their weights and weight gradients. The plain
+    versions run in f64: on "one column" a slot sums 80k terms, which an
+    f32 sum taken term by term rounds by more than the kernel's sum in
+    warp runs."""
+    Q, S, C, W = shape
+    Np = 20_011
+    rng = np.random.default_rng(1)
+    cols_np = _keys(rng, keys, (Q, S, C, Np), W)
+    tables, ws, gr = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.uniform(0, 1, (F, Q * S * W)), rng.uniform(0, 1, (Q, S, C, Np)),
+        rng.standard_normal((Q, S, F, Np))))
+    cols = torch.from_numpy(cols_np).to(dev)
+    ok = (cols >= 0) & (cols < W)
+    rc, rw = cols.clamp(0, W - 1), torch.where(ok, ws, 0.0)
+    t64, w64 = tables.double(), rw.double()
     out = mh.multihot_fwd_cuda(tables, cols, ws, W)
-    _close(out, mh.multihot_fwd_plain(tables, cols, ws, W),
-           mh.multihot_fwd_plain(tables, cols, ws, W))
+    ref = mh.multihot_fwd_plain(t64, rc, w64, W)
+    _close(out, ref, ref)
     dt, dw = mh.multihot_bwd_cuda(tables, cols, ws, gr, W, need_dw)
-    rdt, rdw = mh.multihot_bwd_plain(tables, cols, ws, gr, W, need_dw)
-    bdt, bdw = mh.multihot_bwd_plain(tables, cols, ws, gr.abs(), W, need_dw)
+    rdt, rdw = mh.multihot_bwd_plain(t64, rc, w64, gr.double(), W, need_dw)
+    bdt, bdw = mh.multihot_bwd_plain(tables, rc, rw, gr.abs(), W, need_dw)
     _close(dt, rdt, bdt)
     if need_dw:
-        _close(dw, rdw, bdw)
+        _close(dw, torch.where(ok, rdw, 0.0), bdw)
     else:
         assert dw is None
 

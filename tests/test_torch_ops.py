@@ -2,7 +2,9 @@
 plain version of the B1/B2 kernels), the table gather and its gradient,
 multihot sampling (plain version of the B3/B4 kernels) with and without
 the weight gradient, occupancy compaction and refresh, and the training
-chamfer. Inputs are made with numpy from a seed and handed to both.
+chamfer. Inputs are made with numpy from a seed and handed to both; the
+scatters also on the duplicate-heavy keys the CUDA kernels aggregate
+(runs of one column, a single column).
 
 Tolerances: forward rtol 1e-4 / atol 1e-5 and gradients atol 1e-4 x
 max|reference| — f32 sums taken in another order (XLA's scatter and
@@ -37,11 +39,30 @@ def _grad_close(got, ref):
                                atol=1e-4 * max(np.abs(ref).max(), 1e-12))
 
 
+KEY_PATTERNS = ["random", "runs", "one column"]
+
+
+def _keys(rng, pattern, shape, T):
+    """int32 columns in [0, T) of ``shape``: "random"; "runs" of one
+    column along the last axis, of random lengths 1-96 (the ray-ordered
+    samples of a training step, which the kernels aggregate); or all on
+    "one column"."""
+    if pattern == "random":
+        return rng.integers(0, T, shape).astype(np.int32)
+    if pattern == "one column":
+        return np.full(shape, T // 3, np.int32)
+    n = shape[-1]
+    rows = [np.repeat(rng.integers(0, T, n), rng.integers(1, 97, n))[:n]
+            for _ in range(int(np.prod(shape[:-1])))]
+    return np.stack(rows).reshape(shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("keys", KEY_PATTERNS)
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_segment_add_matches_scatter(precision):
+def test_segment_add_matches_scatter(precision, keys):
     rng = np.random.default_rng(0)
     T, M, F = 3000, 20000, 8
-    cols = rng.integers(0, T, M).astype(np.int32)
+    cols = _keys(rng, keys, (M,), T)
     vals = rng.standard_normal((F, M)).astype(np.float32)
     ref_vals = jnp.asarray(vals)
     if precision == "bf16":   # the TPU kernel's rounding of each update
@@ -94,19 +115,21 @@ def test_table_gather_matches_jax_grad(n_grad):
         assert not t.grad[:, grad_T:].any()
 
 
-def _multihot_inputs(seed, Q=2, S=3, C=4, W=64, F=4, Np=300):
+def _multihot_inputs(seed, Q=2, S=3, C=4, W=64, F=4, Np=300,
+                     keys="random"):
     rng = np.random.default_rng(seed)
     tables = rng.standard_normal((F, Q * S * W)).astype(np.float32)
-    cols = rng.integers(0, W, (Q, S, C, Np)).astype(np.int32)
+    cols = _keys(rng, keys, (Q, S, C, Np), W)
     ws = rng.uniform(0, 1, (Q, S, C, Np)).astype(np.float32)
     g = rng.standard_normal((Q, S, F, Np)).astype(np.float32)
     return tables, cols, ws, g
 
 
+@pytest.mark.parametrize("keys", KEY_PATTERNS)
 @pytest.mark.parametrize("need_dw", [True, False], ids=["dw", "table-only"])
-def test_multihot_matches_jax(need_dw):
+def test_multihot_matches_jax(need_dw, keys):
     W = 64
-    tables, cols, ws, g = _multihot_inputs(3, W=W)
+    tables, cols, ws, g = _multihot_inputs(3, W=W, keys=keys)
     # the JAX reference's XLA path is what its CPU tests run
     ref_out = jmh.multihot_sample(jnp.asarray(tables), jnp.asarray(cols),
                                   jnp.asarray(ws), W, use_pallas=False,
