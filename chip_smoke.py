@@ -15,7 +15,9 @@ Phases, one line each:
                  (run after phase 4, on its trainer) hold B1 and B4, and
                  B3's forward, to the same checks and times on the inputs
                  of one real training step, captured by wrapping the
-                 kernels' wrappers for that step.
+                 kernels' wrappers for that step; its "eval" rows (run
+                 after phase 5) hold B3 to them on the inputs of one
+                 render slab of phase 5's field.
   4. slice    -- the joint LiDAR + camera training step (the bench.py
                  "joint-tuned" rung at full width on the synthetic scene):
                  Trainer.train_one_epoch for one random and one patch
@@ -104,6 +106,30 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time per call of ``fn`` over ``reps`` calls run back to back
+    on the device: a spin kernel holds the stream while the host queues
+    the calls between two CUDA events. ``cuda_ms`` times the host's launches
+    instead wherever a call takes the host longer than its kernels take the
+    device."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22                 # ~2 ms at the H100's clock
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()     # the spin still ran when all were queued
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
 
 
 def compare(name, got, ref, mags):
@@ -238,15 +264,42 @@ def _bags(tables, cols, ws, g, W, need_dw):
     """The multihot inputs in embedding_bag's layout, made outside the
     timed region: weight [Q*S*W, F], bags [Q*S*Np, C] of global columns
     (cols + segment offset), their weights, and the output gradient
-    [Q*S*Np, F]."""
+    [Q*S*Np, F] (None without ``g``)."""
     Q, S, C, Np = cols.shape
     seg = (torch.arange(Q * S, device=cols.device) * W).reshape(Q, S, 1, 1)
     idx = (cols.long() + seg).permute(0, 1, 3, 2).reshape(-1, C).contiguous()
     psw = ws.permute(0, 1, 3, 2).reshape(-1, C).contiguous()
     weight = tables.t().contiguous().requires_grad_(True)
     psw_g = psw.clone().requires_grad_(need_dw)
-    gb = g.permute(0, 1, 3, 2).reshape(-1, tables.shape[0]).contiguous()
+    gb = None if g is None else \
+        g.permute(0, 1, 3, 2).reshape(-1, tables.shape[0]).contiguous()
     return idx, psw, weight, psw_g, gb
+
+
+def multihot_fwd_row(desc, tables, cols, ws, W):
+    """B3 on one input against its plain version (evaluated in f64, see
+    SUM_RTOL), with its time (CUDA events, and the device time of its
+    kernels), the plain version's (in f32), embedding_bag's and the
+    bound."""
+    Q, S, C, Np = cols.shape
+    F = tables.shape[0]
+    got = mh.multihot_fwd_cuda(tables, cols, ws, W)
+    ref = mh.multihot_fwd_plain(tables.double(), cols, ws.double(), W)
+    bnd = mh.multihot_fwd_plain(tables.abs(), cols, ws.abs(), W)
+    err, tol, ok = compare("multihot_fwd", got, ref, bnd)
+    del got, ref, bnd
+    idx, psw, weight, _, _ = _bags(tables, cols, ws, None, W, False)
+    b_ms, b_by = bound(4 * tables.numel() + 8 * cols.numel()
+                       + 4 * Q * S * F * Np, 2 * cols.numel() * F)
+    return dict(
+        variant=desc, max_abs_err=err, tol=tol, ok=ok,
+        ms=cuda_ms(lambda: mh.multihot_fwd_cuda(tables, cols, ws, W)),
+        device_ms=device_ms(lambda: mh.multihot_fwd_cuda(tables, cols, ws,
+                                                         W)),
+        plain_ms=cuda_ms(lambda: mh.multihot_fwd_plain(tables, cols, ws, W)),
+        library_ms=cuda_ms(lambda: nnf.embedding_bag(
+            idx, weight.detach(), mode="sum", per_sample_weights=psw)),
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def multihot_rows(desc, tables, cols, ws, g, W, need_dw):
@@ -256,22 +309,11 @@ def multihot_rows(desc, tables, cols, ws, g, W, need_dw):
     backward row)."""
     Q, S, C, Np = cols.shape
     F = tables.shape[0]
+    fwd = multihot_fwd_row(desc, tables, cols, ws, W)
     t64, w64, g64 = tables.double(), ws.double(), g.double()
-    got = mh.multihot_fwd_cuda(tables, cols, ws, W)
-    ref = mh.multihot_fwd_plain(t64, cols, w64, W)
-    bnd = mh.multihot_fwd_plain(tables.abs(), cols, ws.abs(), W)
-    err, tol, ok = compare("multihot_fwd", got, ref, bnd)
     idx, psw, weight, psw_g, gb = _bags(tables, cols, ws, g, W, need_dw)
     n_tab, n_cw = tables.numel(), cols.numel()
     n_out = Q * S * F * Np
-    b_ms, b_by = bound(4 * n_tab + 8 * n_cw + 4 * n_out, 2 * n_cw * F)
-    fwd = dict(
-        variant=desc, max_abs_err=err, tol=tol, ok=ok,
-        ms=cuda_ms(lambda: mh.multihot_fwd_cuda(tables, cols, ws, W)),
-        plain_ms=cuda_ms(lambda: mh.multihot_fwd_plain(tables, cols, ws, W)),
-        library_ms=cuda_ms(lambda: nnf.embedding_bag(
-            idx, weight.detach(), mode="sum", per_sample_weights=psw)),
-        bound_ms=b_ms, bound_by=b_by)
     dt, dw = mh.multihot_bwd_cuda(tables, cols, ws, g, W, need_dw)
     rdt, rdw = mh.multihot_bwd_plain(t64, cols, w64, g64, W, need_dw)
     del t64, w64, g64
@@ -475,9 +517,11 @@ def report_kernels(rows, tag="kernels"):
     bad = []
     for name, rs in rows.items():
         for r in rs:
+            dev = (f" (device {r['device_ms']:.4f} ms)"
+                   if "device_ms" in r else "")
             log(tag, f"{name} [{r['variant']}]: max_abs_err "
                      f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}) kernel "
-                     f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                     f"{r['ms']:.4f} ms{dev}, plain {r['plain_ms']:.4f} ms, "
                      f"library {_fmt_ms(r['library_ms'])}, bound "
                      f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
                      + (_fmt_teeth(r) if "err_over_tol" in r else "")
@@ -500,6 +544,12 @@ def phase_kernels():
     return rows
 
 
+def _keep(t):
+    """A copy of ``t`` with its strides."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
 def capture_step_inputs(tr, patch=False):
     """The inputs of every B1 and B4 launch of one training step of ``tr``.
     Both wrappers are looked up as module attributes at call time
@@ -510,17 +560,14 @@ def capture_step_inputs(tr, patch=False):
     calls = {"segment_add": [], "multihot_bwd": []}
     orig_sa, orig_mb = segsum.segment_add_cuda, mh.multihot_bwd_cuda
 
-    def keep(t):
-        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                   device=t.device).copy_(t)
-
     def sa(cols, vals, T, precision="bf16"):
-        calls["segment_add"].append((keep(cols), keep(vals), T, precision))
+        calls["segment_add"].append((_keep(cols), _keep(vals), T,
+                                     precision))
         return orig_sa(cols, vals, T, precision)
 
     def mb(tables, cols, ws, g, W, need_dw):
         calls["multihot_bwd"].append(
-            (*(keep(t) for t in (tables, cols, ws, g)), W, need_dw))
+            (*(_keep(t) for t in (tables, cols, ws, g)), W, need_dw))
         return orig_mb(tables, cols, ws, g, W, need_dw)
 
     segsum.segment_add_cuda, mh.multihot_bwd_cuda = sa, mb
@@ -921,6 +968,57 @@ def check_stream_against_cpu(tr, n=4096):
     return d_err, d_tol, i_err
 
 
+def capture_eval_inputs(tr, n_rays=2048):
+    """The inputs of B3's launches in the first slab of one render chunk:
+    ``n_rays`` LiDAR rays spread over training frame 0 through the
+    streaming marcher, whose slabs of 16 samples give each segment
+    n_rays x 16 samples (the static planes, Q 1 x S 6, and the dynamic
+    ones at the three times of the warp, Q 3 x S 12). The forward's wrapper
+    is looked up as a module attribute at call time
+    (``multihot._MultihotSample.forward``), so wrapping it for one render
+    records a copy of the first call of each shape; restoring it leaves
+    the port as it was."""
+    scene = tr.scene
+    ro, rd, t = _frame_rays(tr, scene.H_lidar * scene.W_lidar // n_rays)
+    dev = tr.device
+    kw = tr._occ_kwargs(tr.occ_grid_lidar, lidar=True)
+    calls = []
+    orig = mh.multihot_fwd_cuda
+
+    def fwd(tables, cols, ws, W):
+        if all(c[1].shape != cols.shape or c[3] != W for c in calls):
+            calls.append((_keep(tables), _keep(cols), _keep(ws), W))
+        return orig(tables, cols, ws, W)
+
+    mh.multihot_fwd_cuda = fwd
+    try:
+        tr.renderer.run_occupancy_stream(
+            ro[:n_rays].to(dev), rd[:n_rays].to(dev),
+            torch.tensor(t, device=dev), kw["occ"], kw["occ_grid"],
+            num_steps_occ=kw["num_steps_occ"], cal_lidar_color=True,
+            occ_thresh=kw["occ_thresh"])
+        torch.cuda.synchronize()
+    finally:
+        mh.multihot_fwd_cuda = orig
+    return calls
+
+
+def phase_eval_kernels(tr):
+    """Phase 3's "eval" rows: B3 on the inputs of one render slab of phase
+    5's field, each against its plain version and timed beside its bound
+    and embedding_bag."""
+    rows = {"multihot_fwd": []}
+    for tables, cols, ws, W in capture_eval_inputs(tr):
+        Q, S, C, Np = cols.shape
+        rows["multihot_fwd"].append(multihot_fwd_row(
+            f"eval slab Q={Q} S={S} C={C} W={W} F={tables.shape[0]} "
+            f"Np={Np}", tables, cols, ws, W))
+    assert len(rows["multihot_fwd"]) == 2, "expected the static and the " \
+        "dynamic planes' B3 launch in a render slab"
+    report_kernels(rows)
+    return rows
+
+
 def phase_eval(tr, smi):
     from nvsf_torch.data.synthetic import make_synthetic_scene
     from nvsf_torch.train.evaluate import evaluate
@@ -997,7 +1095,7 @@ def phase_eval(tr, smi):
     log("eval", f"LiDAR frame 0 from the EMA parameters: finite (mean depth "
                 f"{mean_m:.3f} m), trained parameters, EMA and optimizer "
                 f"state unchanged; launches {ema_launches}")
-    return launches
+    return launches, phase_eval_kernels(tr)
 
 
 # ----------------------------------------------------------------------
@@ -1036,7 +1134,9 @@ def main():
     tr, train_launches = phase_slice(smi)
     for name, rs in phase_step_kernels(tr).items():
         rows[name] += rs
-    eval_launches = phase_eval(tr, smi)
+    eval_launches, eval_rows = phase_eval(tr, smi)
+    for name, rs in eval_rows.items():
+        rows[name] += rs
     del tr
     torch.cuda.empty_cache()
     phase_learning()

@@ -62,14 +62,10 @@ def _nvcc() -> str:
     return path
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
-
-
-def _build(flags=NVCC_FLAGS) -> Path:
-    srcs = _sources()
+def _build(flags=NVCC_FLAGS, csrc=CSRC) -> Path:
+    srcs = sorted(csrc.glob("*.cu"))
     h = hashlib.sha256(" ".join(flags).encode())
-    for s in sorted(CSRC.glob("*.cu*")):      # sources and headers
+    for s in sorted(csrc.glob("*.cu*")):      # sources and headers
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
@@ -108,11 +104,12 @@ def _build(flags=NVCC_FLAGS) -> Path:
     return so
 
 
-def build_library(flags=NVCC_FLAGS) -> ctypes.CDLL:
+def build_library(flags=NVCC_FLAGS, csrc=CSRC) -> ctypes.CDLL:
     """Build (or find in the cache) and load the kernels compiled with
-    ``flags``. The package uses ``library()``; other flags are for
-    measuring variants of the kernels (``tools/``)."""
-    lib = ctypes.CDLL(str(_build(flags)))
+    ``flags`` from the sources in ``csrc``. The package uses ``library()``;
+    other flags and sources (with the same C interface) are for measuring
+    variants of the kernels (``tools/``)."""
+    lib = ctypes.CDLL(str(_build(flags, Path(csrc))))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -7,8 +7,11 @@ Counterpart of ``nvsf_tpu/ops/multihot.py::multihot_sample``:
 Gradients flow to ``tables`` and, with ``need_dw``, to ``ws`` (the lerp
 weights, through which the flow field learns via the warped planes); with
 ``need_dw=False`` the weight gradient is zero. On CUDA tensors the forward
-and backward launch the kernels of ``nvsf_torch/csrc/multihot.cu``; on CPU
-tensors they run the plain PyTorch versions below.
+and backward launch the kernels of ``nvsf_torch/csrc/multihot.cu`` (the
+forward stages each segment's table row-major in shared memory and reads a
+corner's F features as one row), so a segment's F * W floats must fit in a
+block's 227 KB of shared memory; on CPU tensors they run the plain PyTorch
+versions below.
 """
 
 from __future__ import annotations
@@ -62,6 +65,10 @@ def _check_inputs(tables, cols, ws, W):
     if C > 8 or tables.shape[0] > 16:
         raise ValueError(f"kernel takes C <= 8 corners and F <= 16 "
                          f"features, got C={C}, F={tables.shape[0]}")
+    smem = tables.shape[0] * W * 4
+    if smem > 232448:
+        raise ValueError(f"segment F*W*4 = {smem} B exceeds the 227 KB of "
+                         "shared memory a block can use")
 
 
 def multihot_fwd_cuda(tables, cols, ws, W: int) -> torch.Tensor:
@@ -86,10 +93,6 @@ def multihot_bwd_cuda(tables, cols, ws, g, W: int, need_dw: bool):
     kernels.require_cuda("g", g, torch.float32, 4)
     if tuple(g.shape) != (Q, S, F, Np):
         raise ValueError(f"g {tuple(g.shape)} != {(Q, S, F, Np)}")
-    smem = F * W * 4
-    if smem > 232448:
-        raise ValueError(f"segment gradient F*W*4 = {smem} B exceeds the "
-                         "227 KB of shared memory a block can use")
     d_tables = torch.zeros_like(tables)
     d_ws = torch.empty_like(ws) if need_dw else None
     lib = kernels.library()

@@ -6,7 +6,9 @@ and skip without one; on the card run them without the JAX test setup:
 
 The scatter kernels (B1, B4) are also held to their plain versions on the
 key patterns their warp aggregation and vector atomics are built for:
-runs of one column, a single column, dropped columns, ragged sizes.
+runs of one column, a single column, dropped columns, ragged sizes. The
+forward (B3) is held to its plain version on each of its paths (vector or
+scalar, F = 8 or any F), at the step's and the render's shapes.
 
 Tolerance: a kernel's f32 sums run in another order than the plain
 version's (atomics land in any order), so each output is held to 1e-5 of
@@ -119,6 +121,63 @@ def test_multihot_kernels(dev, shape, need_dw, keys, F):
         _close(dw, torch.where(ok, rdw, 0.0), bdw)
     else:
         assert dw is None
+
+
+# (Q, S, C, W) of the forward tests: one segment with one corner; the
+# static planes (6 segments, 4 corners, W 4096); the dynamic planes at one
+# time (12 segments, 2 lerp corners, W 256; the occupancy refresh's query)
+# and at the warp's three times (Q*S 36; the step's and the render's);
+# 4 segments of 4 corners in a narrow table.
+FWD_SHAPES = {"one-segment": (1, 1, 1, 256), "static": (1, 6, 4, 4096),
+              "dynamic-one-time": (1, 12, 2, 256),
+              "dynamic-warp": (3, 12, 2, 256), "narrow": (2, 2, 4, 256)}
+# every shape with every F whose segment (F * W floats) fits in a block's
+# shared memory: all but F 16 at W 4096
+FWD_CASES = [(shape, F) for shape in FWD_SHAPES for F in (3, 4, 8, 16)
+             if F * FWD_SHAPES[shape][3] * 4 <= 232448]
+
+
+@pytest.mark.parametrize("keys", KEY_PATTERNS)
+@pytest.mark.parametrize("Np", [1, 31, 20_011, 32_768])
+@pytest.mark.parametrize("shape,F", FWD_CASES)
+def test_multihot_fwd_kernel(dev, shape, F, Np, keys):
+    """B3 against its plain version in f64 on every path of the kernel:
+    Np on the 4-sample vector path (32,768, the render's slab of 2,048 rays
+    x 16 samples) and the scalar one (1, 31, 20,011), F on the F = 8 path
+    and the generic one, columns at 0, at W - 1 and outside [0, W), which
+    contribute nothing."""
+    Q, S, C, W = FWD_SHAPES[shape]
+    rng = np.random.default_rng(2)
+    cols_np = _keys(rng, keys, (Q, S, C, Np), W)
+    cols_np[..., 0], cols_np[..., -1] = 0, W - 1
+    tables, ws = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.uniform(-1, 1, (F, Q * S * W)), rng.uniform(0, 1, (Q, S, C, Np))))
+    cols = torch.from_numpy(cols_np).to(dev)
+    ok = (cols >= 0) & (cols < W)
+    rc, rw = cols.clamp(0, W - 1), torch.where(ok, ws, 0.0)
+    n0 = kernels.LAUNCHES["multihot_fwd"]
+    out = mh.multihot_fwd_cuda(tables, cols, ws, W)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["multihot_fwd"] == n0 + 1
+    ref = mh.multihot_fwd_plain(tables.double(), rc, rw.double(), W)
+    _close(out, ref, mh.multihot_fwd_plain(tables.abs(), rc, rw, W))
+
+
+@pytest.mark.parametrize("F,W", [(16, 4096), (8, 8192)])
+def test_multihot_rejects_segments_over_shared_memory(dev, F, W):
+    """A segment of F * W floats over a block's 227 KB of shared memory,
+    which both kernels hold whole, is refused before any launch."""
+    Q, S, C, Np = 1, 2, 4, 64
+    tables = torch.zeros((F, Q * S * W), device=dev)
+    cols = torch.zeros((Q, S, C, Np), dtype=torch.int32, device=dev)
+    ws = torch.ones((Q, S, C, Np), device=dev)
+    g = torch.ones((Q, S, F, Np), device=dev)
+    n0 = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="227 KB"):
+        mh.multihot_fwd_cuda(tables, cols, ws, W)
+    with pytest.raises(ValueError, match="227 KB"):
+        mh.multihot_bwd_cuda(tables, cols, ws, g, W, True)
+    assert kernels.LAUNCHES == n0
 
 
 @pytest.mark.parametrize("masked", [False, True])

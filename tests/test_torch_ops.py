@@ -125,12 +125,10 @@ def _multihot_inputs(seed, Q=2, S=3, C=4, W=64, F=4, Np=300,
     return tables, cols, ws, g
 
 
-@pytest.mark.parametrize("keys", KEY_PATTERNS)
-@pytest.mark.parametrize("need_dw", [True, False], ids=["dw", "table-only"])
-def test_multihot_matches_jax(need_dw, keys):
-    W = 64
-    tables, cols, ws, g = _multihot_inputs(3, W=W, keys=keys)
-    # the JAX reference's XLA path is what its CPU tests run
+def _multihot_against_jax(tables, cols, ws, g, W, need_dw):
+    """The port's multihot_sample (the plain forward and backward on CPU
+    tensors) against the JAX reference's XLA path, which is what its CPU
+    tests run."""
     ref_out = jmh.multihot_sample(jnp.asarray(tables), jnp.asarray(cols),
                                   jnp.asarray(ws), W, use_pallas=False,
                                   need_dw=need_dw)
@@ -141,16 +139,61 @@ def test_multihot_matches_jax(need_dw, keys):
 
     tt = torch.from_numpy(tables).requires_grad_(True)
     tw = torch.from_numpy(ws).requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
     out = tmh.multihot_sample(tt, torch.from_numpy(cols), tw, W,
                               need_dw=need_dw)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out),
                                **FWD)
     out.backward(torch.from_numpy(g))
+    assert kernels.LAUNCHES == before   # CPU tensors take the plain path
     _grad_close(tt.grad.numpy(), ref_dt)
     if need_dw:
         _grad_close(tw.grad.numpy(), ref_dw)
     else:
         assert not tw.grad.any() and not np.asarray(ref_dw).any()
+
+
+@pytest.mark.parametrize("keys", KEY_PATTERNS)
+@pytest.mark.parametrize("need_dw", [True, False], ids=["dw", "table-only"])
+def test_multihot_matches_jax(need_dw, keys):
+    W = 64
+    tables, cols, ws, g = _multihot_inputs(3, W=W, keys=keys)
+    _multihot_against_jax(tables, cols, ws, g, W, need_dw)
+
+
+# The two plane geometries of the field at toy sizes: the coarse static
+# planes (4 bilinear corners of a 4 x 6 plane in a table padded to W = 32
+# columns, as planes.py pads them to MULTIHOT_MAX_W) and the folded dynamic
+# planes (Q = 3 time queries, x-lerp corners x0 and x0 + 1 of a 16-wide
+# row). (Q, S, C, W, columns the corners reach)
+MULTIHOT_GEOMETRIES = {"static-padded": (1, 3, 4, 32, 24),
+                       "dynamic-lerp": (3, 4, 2, 16, 16)}
+
+
+@pytest.mark.parametrize("Np", [256, 301])
+@pytest.mark.parametrize("need_dw", [True, False], ids=["dw", "table-only"])
+@pytest.mark.parametrize("geometry", list(MULTIHOT_GEOMETRIES))
+def test_multihot_matches_jax_at_plane_geometries(geometry, need_dw, Np):
+    """The edges the CUDA forward's vector and scalar paths care about:
+    Np a multiple of 4 and not, columns at 0 and at W - 1 (in the padding
+    for the static planes), lerp corners on neighbouring columns."""
+    Q, S, C, W, used = MULTIHOT_GEOMETRIES[geometry]
+    F = 4
+    rng = np.random.default_rng(9)
+    tables = rng.standard_normal((F, Q * S * W)).astype(np.float32)
+    if C == 2:
+        x0 = rng.integers(0, used - 1, (Q, S, 1, Np))
+        x0[..., 0], x0[..., 1] = 0, W - 2
+        wx = rng.uniform(0, 1, (Q, S, 1, Np))
+        cols = np.concatenate([x0, x0 + 1], axis=2)
+        ws = np.concatenate([1 - wx, wx], axis=2)
+    else:
+        cols = rng.integers(0, used, (Q, S, C, Np))
+        cols[..., 0], cols[..., 1] = 0, W - 1
+        ws = rng.uniform(0, 1, (Q, S, C, Np))
+    g = rng.standard_normal((Q, S, F, Np)).astype(np.float32)
+    _multihot_against_jax(tables, cols.astype(np.int32),
+                          ws.astype(np.float32), g, W, need_dw)
 
 
 def test_multihot_plain_backward_matches_autograd():
