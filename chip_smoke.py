@@ -17,7 +17,9 @@ Phases, one line each:
                  of one real training step, captured by wrapping the
                  kernels' wrappers for that step; its "eval" rows (run
                  after phase 5) hold B3 to them on the inputs of one
-                 render slab of phase 5's field.
+                 render slab of phase 5's field; its "uniform" rows (after
+                 phase 8) hold B1, B3 and B4 to them on the inputs of one
+                 remat chunk of a dense step.
   4. slice    -- the joint LiDAR + camera training step (the bench.py
                  "joint-tuned" rung at full width on the synthetic scene):
                  Trainer.train_one_epoch for one random and one patch
@@ -46,9 +48,20 @@ Phases, one line each:
                  novel pano size, mesh faces and trace; prints each
                  stage's wall time and the path's kernel launches; holds
                  one eval-mode U-Net forward on the card to the CPU's.
+  8. uniform  -- the dense uniform render mode (the JAX package's default)
+                 at phase 4's width: 768 samples a ray through the field,
+                 the density query in 8 remat chunks. Timed random and
+                 patch steps with a torch.profiler breakdown and the peak
+                 memory; one f32 step with 8 chunks and with 1, equal
+                 (B2 on the path); one dense chunk on the card and on the
+                 CPU; evaluate() of the trained field, dense (B5 behind the
+                 PointsMeter), the LiDAR frame render timed beside phase
+                 5's marcher; the convergence drive of phase 6 in uniform
+                 mode.
 
 Any failure raises and the script exits non-zero. The line before the
-last is a JSON record of the kernels; the last is
+last is a JSON record of the kernels (B1 and B2, one kernel with a
+precision flag, as two entries); the last is
 {"ok": true, "device": {...}}. Needs one GPU and nvcc; imports no JAX.
 """
 
@@ -507,6 +520,8 @@ KERNELS = [
     # name, C source, TPU kernel it replaces
     ("segment_add", "nvsf_torch/csrc/segsum.cu",
      "nvsf_tpu/ops/segsum.py:102"),
+    ("segment_add_f32", "nvsf_torch/csrc/segsum.cu",
+     "nvsf_tpu/ops/segsum.py:42"),
     ("multihot_fwd", "nvsf_torch/csrc/multihot.cu",
      "nvsf_tpu/ops/multihot.py:33"),
     ("multihot_bwd", "nvsf_torch/csrc/multihot.cu",
@@ -564,24 +579,35 @@ def _keep(t):
                                device=t.device).copy_(t)
 
 
-def capture_step_inputs(tr, patch=False):
-    """The inputs of every B1 and B4 launch of one training step of ``tr``.
+def capture_step_inputs(tr, patch=False, distinct=False):
+    """The inputs of every B1 and B4 launch of one training step of ``tr``
+    (with ``distinct``, of the first launch of each shape only: a dense
+    step's remat chunks launch each kernel at the same shapes 16 times).
     Both wrappers are looked up as module attributes at call time
     (``segsum.segment_add_fm``, ``multihot._MultihotSample.backward``), so
     wrapping the attributes for one step records each call's inputs
     (copies, with their strides) and restoring them leaves the port as it
     was."""
     calls = {"segment_add": [], "multihot_bwd": []}
+    seen = set()
     orig_sa, orig_mb = segsum.segment_add_cuda, mh.multihot_bwd_cuda
 
+    def new(key):
+        if distinct and key in seen:
+            return False
+        seen.add(key)
+        return True
+
     def sa(cols, vals, T, precision="bf16"):
-        calls["segment_add"].append((_keep(cols), _keep(vals), T,
-                                     precision))
+        if new(("sa", tuple(vals.shape), T, precision)):
+            calls["segment_add"].append((_keep(cols), _keep(vals), T,
+                                         precision))
         return orig_sa(cols, vals, T, precision)
 
     def mb(tables, cols, ws, g, W, need_dw):
-        calls["multihot_bwd"].append(
-            (*(_keep(t) for t in (tables, cols, ws, g)), W, need_dw))
+        if new(("mb", tuple(cols.shape), W, need_dw)):
+            calls["multihot_bwd"].append(
+                (*(_keep(t) for t in (tables, cols, ws, g)), W, need_dw))
         return orig_mb(tables, cols, ws, g, W, need_dw)
 
     segsum.segment_add_cuda, mh.multihot_bwd_cuda = sa, mb
@@ -593,12 +619,14 @@ def capture_step_inputs(tr, patch=False):
     return calls
 
 
-def phase_step_kernels(tr):
+def phase_step_kernels(tr, label="step", distinct=False):
     """Phase 3's "step" rows: B1 and B4 (and B3's forward on B4's inputs,
     for comparison) on the inputs of one LiDAR + camera step of phase 4's
     trainer, ray-ordered samples and all, each against its plain version
-    and timed beside its bound and library call."""
-    calls = capture_step_inputs(tr)
+    and timed beside its bound and library call; its "uniform" rows
+    (``distinct``) on the first launch of each shape of one dense step of
+    phase 8's trainer: one remat chunk's."""
+    calls = capture_step_inputs(tr, distinct=distinct)
     field = tr.field
     names = {field.hash_lidar.static_grid.n_cols: "static hash",
              field.flow.enc.n_cols: "flow hash",
@@ -607,12 +635,13 @@ def phase_step_kernels(tr):
     rows = {"segment_add": [], "multihot_fwd": [], "multihot_bwd": []}
     for i, (cols, vals, T, prec) in enumerate(calls["segment_add"]):
         rows["segment_add"].append(segment_add_row(
-            f"step #{i} {names.get(T, 'table')}", cols, vals, T, prec))
+            f"{label} #{i} {names.get(T, 'table')}", cols, vals, T, prec))
     for i, (tables, cols, ws, g, W, need_dw) in enumerate(
             calls["multihot_bwd"]):
         Q, S, C, Np = cols.shape
         fwd, bwd = multihot_rows(
-            f"step #{i} Q={Q} S={S} C={C} W={W} F={tables.shape[0]} Np={Np}",
+            f"{label} #{i} Q={Q} S={S} C={C} W={W} F={tables.shape[0]} "
+            f"Np={Np}",
             tables, cols, ws, g, W, need_dw)
         rows["multihot_fwd"].append(fwd)
         rows["multihot_bwd"].append(bwd)
@@ -797,12 +826,17 @@ def _family(kernel_name: str) -> str:
     return "elementwise/other"
 
 
-def profile_device(fn, n=3):
+def profile_device(fn, n=3, host=True):
     """Device time per call of ``fn(i)`` by kernel family
-    (torch.profiler): ({family: ms}, kernels per call)."""
+    (torch.profiler): ({family: ms}, kernels per call). ``host=False``
+    records the card's activity only: a dense step's ~110k kernels and
+    several times as many host operations took the profiler longer to
+    gather than the step itself."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
@@ -986,37 +1020,49 @@ def profile_render(tr, stride=8):
     return fams, launches, wall, ro.shape[0]
 
 
-def check_stream_against_cpu(tr, n=4096):
+def _render_card_vs_cpu(tr, n, render, what):
     """``n`` LiDAR rays of frame 0, spread over every row of the pano,
-    through the trained field's streaming marcher on the card (B3) and on
-    the CPU (plain versions), both in f32 from the same rays and grid.
-    Tolerance 1e-3 of the LiDAR range in depth and 1e-3 in the heads'
-    outputs: the two differ only by the order of f32 sums (~1e-6
-    relative), and where that moves a chunk's early exit by one slab, by
-    the weight left behind it, at most trans_eps = 1e-4 of a ray."""
+    through ``render(renderer, rays_o, rays_d, t)`` with the trained field
+    on the card (the kernels) and on the CPU (plain versions), both in f32
+    from the same rays. Tolerance 1e-3 of the LiDAR range in depth and 1e-3
+    in the heads' outputs."""
     scene = tr.scene
     ro, rd, t = _frame_rays(tr, max(scene.H_lidar * scene.W_lidar // n, 1))
     ro, rd = ro[:n], rd[:n]
-    kw = tr._occ_kwargs(tr.occ_grid_lidar, lidar=True)
     outs = []
     for dev in ("cuda", "cpu"):
         rend = dataclasses.replace(tr.renderer,
                                    field=copy.deepcopy(tr.field).to(dev),
                                    compute_dtype=torch.float32)
-        o = rend.run_occupancy_stream(
-            ro.to(dev), rd.to(dev), torch.tensor(t, device=dev),
-            kw["occ"], kw["occ_grid"].to(dev),
-            num_steps_occ=kw["num_steps_occ"], cal_lidar_color=True,
-            occ_thresh=kw["occ_thresh"])
+        with torch.no_grad():
+            o = render(rend, ro.to(dev), rd.to(dev),
+                       torch.tensor(t, device=dev))
         outs.append({k: v.cpu() for k, v in o.items()})
     card, cpu = outs
     d_err = float((card["depth_lidar"] - cpu["depth_lidar"]).abs().max())
     i_err = float((card["image_lidar"] - cpu["image_lidar"]).abs().max())
     d_tol = 1e-3 * tr.cfg.lidar_max_depth
     assert d_err <= d_tol and i_err <= 1e-3, \
-        f"stream render card vs CPU: depth {d_err:.3e} (tol {d_tol:.3e}), " \
+        f"{what} card vs CPU: depth {d_err:.3e} (tol {d_tol:.3e}), " \
         f"image {i_err:.3e} (tol 1e-3)"
     return d_err, d_tol, i_err
+
+
+def check_stream_against_cpu(tr, n=4096):
+    """The streaming marcher on the card and on the CPU, from the same rays
+    and grid (``_render_card_vs_cpu``): the two differ only by the order of
+    f32 sums (~1e-6 relative), and where that moves a chunk's early exit by
+    one slab, by the weight left behind it, at most trans_eps = 1e-4 of a
+    ray."""
+    kw = tr._occ_kwargs(tr.occ_grid_lidar, lidar=True)
+
+    def render(rend, ro, rd, t):
+        return rend.run_occupancy_stream(
+            ro, rd, t, kw["occ"], kw["occ_grid"].to(ro.device),
+            num_steps_occ=kw["num_steps_occ"], cal_lidar_color=True,
+            occ_thresh=kw["occ_thresh"])
+
+    return _render_card_vs_cpu(tr, n, render, "stream render")
 
 
 def capture_eval_inputs(tr, n_rays=2048):
@@ -1146,14 +1192,16 @@ def phase_eval(tr, smi):
     log("eval", f"LiDAR frame 0 from the EMA parameters: finite (mean depth "
                 f"{mean_m:.3f} m), trained parameters, EMA and optimizer "
                 f"state unchanged; launches {ema_launches}")
-    return launches, phase_eval_kernels(tr)
+    return launches, phase_eval_kernels(tr), (rays / best, res)
 
 
 # ----------------------------------------------------------------------
 # phase 6: the small convergence drive of the verify notes
 # ----------------------------------------------------------------------
 
-def phase_learning():
+def phase_learning(render_mode="occupancy", tag="learning"):
+    """The drive in ``render_mode``: 12 epochs of 3 steps, 64 samples a ray
+    (occupancy mode keeps 32 of them)."""
     from nvsf_torch.data.synthetic import (SyntheticSceneSpec,
                                            make_synthetic_scene)
     from nvsf_torch.train.trainer import Trainer
@@ -1164,16 +1212,18 @@ def phase_learning():
         bound=1.0, min_near_lidar=1.0 * spec.scale,
         lidar_max_depth=80.0 * spec.scale, min_near=1.0 * spec.scale,
         active_sensor=True, num_rays=256, num_rays_lidar=256, num_steps=64,
-        num_steps_occ=32, render_mode="occupancy", log2_hashmap_size=14,
+        num_steps_occ=32, render_mode=render_mode, log2_hashmap_size=14,
         n_levels_hash=4, n_features_per_level_hash=8, flow_n_levels=4,
         iters=100, epochs=12, use_error_map=True))
     tr = Trainer(cfg, make_synthetic_scene(spec, split="train"),
                  device="cuda")
     losses = [tr.train_one_epoch().loss for _ in range(12)]
-    log("learning", "epoch losses " + " ".join(f"{v:.3f}" for v in losses))
+    log(tag, f"{render_mode} mode, epoch losses "
+             + " ".join(f"{v:.3f}" for v in losses))
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < 0.7 * losses[0], \
         f"last loss {losses[-1]:.4f} not below 0.7 x first {losses[0]:.4f}"
+    return losses
 
 
 # ----------------------------------------------------------------------
@@ -1353,6 +1403,210 @@ def phase_cli(smi):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 8: the dense uniform render mode at full width
+# ----------------------------------------------------------------------
+
+UNIFORM_DIR = REPO / "build" / "chip_smoke_uniform"
+
+
+def uniform_config(spec, **over):
+    """Phase 4's config in the dense uniform mode, the JAX package's
+    default: all 768 samples of each ray through the field, the density
+    query in 8 remat chunks (196,608 samples each, the occupancy step's
+    LiDAR N), eval renders in chunks of 4096 rays (the JAX default)."""
+    kw = dict(render_mode="uniform", num_steps=768, remat_chunks=8,
+              max_ray_batch=4096)
+    kw.update(over)
+    return dataclasses.replace(joint_tuned_config(spec), **kw)
+
+
+def check_remat(tr, fi=3):
+    """One random step's loss and gradients with the density query in 8
+    remat chunks and in one, from the same state and draws (the trainer's
+    generator reseeded), in f32 (the step's table gradients then run B2).
+    Equal within 1e-5 of each gradient's largest magnitude (the same
+    per-point functions; gradients summed over chunks in another order,
+    by atomics). Returns the loss, the worst gradient and its error, and
+    the peak memory of each (GiB)."""
+    rend, field = tr.renderer, tr.field
+    saved = (rend.compute_dtype, field.table_grad_precision,
+             rend.remat_chunks)
+    rend.compute_dtype, field.table_grad_precision = torch.float32, "f32"
+    res = {}
+    try:
+        for chunks in (8, 1):
+            rend.remat_chunks = chunks
+            tr.generator.manual_seed(1234)
+            field.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss, _, _ = tr.loss_and_grads(fi, False)
+            torch.cuda.synchronize()
+            res[chunks] = (float(loss), {
+                k: p.grad.detach().clone() for k, p in
+                field.named_parameters() if p.grad is not None},
+                torch.cuda.max_memory_allocated() / 2**30)
+            field.zero_grad(set_to_none=True)
+    finally:
+        rend.compute_dtype, field.table_grad_precision, \
+            rend.remat_chunks = saved
+    (l8, g8, m8), (l1, g1, m1) = res[8], res[1]
+    assert abs(l8 - l1) <= 1e-5 * abs(l1), f"loss {l8} (8 chunks) vs {l1}"
+    assert set(g8) == set(g1), sorted(set(g8) ^ set(g1))
+    rel = {k: float((g8[k] - g1[k]).abs().max())
+           / max(float(g1[k].abs().max()), 1e-30) for k in g1}
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= 1e-5, \
+        f"remat 8 vs 1: gradient {worst} {rel[worst]:.3e} of its max"
+    return l8, l1, worst, rel[worst], m8, m1
+
+
+def check_run_against_cpu(tr, n=256):
+    """One chunk of ``n`` LiDAR rays x 768 samples through the dense
+    ``run`` on the card and on the CPU (``_render_card_vs_cpu``)."""
+    def render(rend, ro, rd, t):
+        return rend.run(ro, rd, t, cal_lidar_color=True)
+    return _render_card_vs_cpu(tr, n, render, "dense run")
+
+
+def phase_uniform(smi, trained, stream):
+    """The dense uniform mode at full width: steps with remat chunks, the
+    remat check; then on phase 5's trained field (``trained``, its
+    parameters: a few dense steps leave every val ray dropped, and the
+    chamfer meters nothing to score) a dense chunk card vs CPU, evaluate
+    (dense renders, B5 behind the PointsMeter) beside phase 5's streaming
+    eval (``stream``: its rays/s and results) and the LiDAR frame timed;
+    and the convergence drive in uniform mode. Returns the launches by
+    path (each window's counts set to 0 just before it and read just
+    after): "uniform", the full-width steps and the dense eval;
+    "uniform-f32", the f32 remat check (B2's only launches; the shipped
+    config trains in bf16). The drive's toy-size steps and the card-vs-CPU
+    chunk count in neither. Also returns the trainer (for the "uniform"
+    kernel rows) and the drive's losses."""
+    from nvsf_torch.data.synthetic import make_synthetic_scene
+    from nvsf_torch.train.evaluate import evaluate
+    from nvsf_torch.train.trainer import Trainer
+    stream_rays_per_s, stream_res = stream
+    spec, scene = slice_scene()
+    cfg = uniform_config(spec)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, scene, seed=0, device="cuda")
+    assert tr.occ is None and tr.renderer.remat_chunks == 8
+    torch.cuda.synchronize()
+    log("uniform", f"setup {time.perf_counter() - t0:.1f} s; "
+                   f"{cfg.num_rays_lidar} + {cfg.num_rays} rays x "
+                   f"{cfg.num_steps} samples, remat chunks "
+                   f"{cfg.remat_chunks}")
+    t_phase = time.perf_counter()
+
+    def took():
+        return f"[{time.perf_counter() - t_phase:.1f} s into the phase]"
+
+    kernels.reset_launch_counts()
+    before = {k: p.detach().clone() for k, p in tr.field.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    rays = cfg.num_rays_lidar + cfg.num_rays
+    for patch in (False, True):
+        kind = "patch" if patch else "random"
+        ms, host_ms = _time_steps(tr, patch, n=2, warmup=1)
+        log("uniform", f"steady-state {kind} step: {ms:.1f} ms = "
+                       f"{rays / ms * 1e3:.0f} rays/s; host returns after "
+                       f"{host_ms:.1f} ms ({smi}) {took()}")
+        if patch:
+            continue
+        fams, per_step = profile_device(
+            lambda i: tr.train_step(i % len(tr.scene), patch), n=1,
+            host=False)
+        assert per_step > 0, "the profiler recorded no kernel of the step"
+        busy = sum(fams.values())
+        log("profile", f"uniform {kind} step: device time {busy:.1f} ms in "
+                       f"{per_step} kernels; busy share {busy / ms:.2f} of "
+                       f"the unprofiled step {took()}")
+        for f, fms in sorted(fams.items(), key=lambda kv: -kv[1]):
+            log("profile", f"  uniform {kind} {f:22s} {fms:8.2f} ms/step")
+    step_launches = dict(kernels.LAUNCHES)
+    log("uniform", f"peak memory of the steps (8 remat chunks) "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                   f"launches of its {tr.global_step} steps "
+                   f"{step_launches}")
+    unchanged = [k for k, p in tr.field.named_parameters()
+                 if torch.equal(p, before[k])]
+    assert not unchanged, f"parameters not updated: {unchanged}"
+    assert all(torch.isfinite(p).all() for p in tr.field.parameters())
+    del before
+
+    kernels.reset_launch_counts()
+    l8, l1, worst, gerr, m8, m1 = check_remat(tr)
+    f32_launches = dict(kernels.LAUNCHES)
+    log("uniform", f"remat 8 vs 1 chunks, one f32 step at 2048 + 2048 rays:"
+                   f" loss {l8:.7g} / {l1:.7g}, worst gradient {worst} "
+                   f"{gerr:.2e} of its max (tol 1e-5); peak memory "
+                   f"{m8:.2f} / {m1:.2f} GiB {took()}")
+    tr.field.load_state_dict(trained)
+    d_err, d_tol, i_err = check_run_against_cpu(tr)
+    log("uniform", f"phase 5's field: 256 rays x 768 samples through the "
+                   f"dense run, card vs CPU in f32: depth {d_err:.3e} (tol "
+                   f"{d_tol:.3e}), image {i_err:.3e} (tol 1e-3) {took()}")
+
+    val = make_synthetic_scene(spec, split="val")
+    shutil.rmtree(UNIFORM_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = evaluate(tr, val, use_ema=False, save_dir=str(UNIFORM_DIR),
+                   write_outputs=False, log_fn=lambda m: print(m, flush=True))
+    torch.cuda.synchronize()
+    log("uniform", f"evaluate of phase 5's field, dense renders: "
+                   f"{time.perf_counter() - t0:.2f} s; peak memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                   f"{took()}")
+    for cat, r in res.items():
+        key = {"CD": r["point"][0], "F-score": r["point"][1],
+               "depth RMSE": r["depth"][0], "PSNR": r["rgb_psnr"]}
+        bad = [k for k, v in key.items() if not np.isfinite(v)]
+        assert not bad, f"non-finite {bad} in category {cat}: {r}"
+        s = stream_res[cat]
+        log("uniform", f"{cat}: " + ", ".join(f"{k} {v:.4f}"
+                                              for k, v in key.items())
+            + f" (phase 5's streaming eval of this field: CD "
+              f"{s['point'][0]:.4f}, F-score {s['point'][1]:.4f}, depth "
+              f"RMSE {s['depth'][0]:.4f}, PSNR {s['rgb_psnr']:.4f})")
+    # evaluate rendered this frame size just before: one timed render
+    frame = tr.scene.H_lidar * tr.scene.W_lidar
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.render_lidar_frame(0)                        # ends in a host copy
+    secs = time.perf_counter() - t0
+    chunks = -(-frame // cfg.max_ray_batch)
+    log("uniform", f"LiDAR frame render (dense, {frame} rays x "
+                   f"{cfg.num_steps} samples in {chunks} chunks of "
+                   f"{cfg.max_ray_batch}): {secs * 1e3:.1f} ms = "
+                   f"{frame / secs:.0f} rays/s; the streaming marcher of "
+                   f"phase 5: {stream_rays_per_s:.0f} rays/s ({smi})")
+    fams, n_kernels, wall, n_rays = profile_render(tr)
+    busy = sum(fams.values())
+    log("profile", f"dense render of every 8th ray of the frame ({n_rays} "
+                   f"rays): {wall:.1f} ms, device time {busy:.1f} ms in "
+                   f"{n_kernels} kernels; busy share {busy / wall:.2f} "
+                   f"{took()}")
+    for f, fms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        log("profile", f"  dense render {f:22s} {fms:8.2f} ms")
+    eval_launches = dict(kernels.LAUNCHES)
+    launches = {k: step_launches[k] + eval_launches[k] for k in step_launches}
+    log("uniform", f"launches of the full-width path: steps {step_launches}"
+                   f", dense eval {eval_launches}; the f32 remat check "
+                   f"{f32_launches} {took()}")
+    missing = [k for k in ("segment_add", "multihot_fwd", "multihot_bwd",
+                           "chamfer_min_dist") if launches[k] == 0]
+    assert not missing, f"kernels not launched by the uniform path: " \
+                        f"{missing}"
+    assert launches["segment_add_f32"] == 0, launches
+    assert f32_launches["segment_add_f32"] > 0, f32_launches
+    losses = phase_learning("uniform", tag="uniform")
+    return {"uniform": launches, "uniform-f32": f32_launches}, tr, losses
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1370,24 +1624,39 @@ def main():
     for name, rs in phase_step_kernels(tr).items():
         rows[name] += rs
     done("slice")
-    eval_launches, eval_rows = phase_eval(tr, smi)
+    eval_launches, eval_rows, stream = phase_eval(tr, smi)
     for name, rs in eval_rows.items():
         rows[name] += rs
     done("eval")
+    trained = {k: v.detach().clone() for k, v in tr.field.state_dict().items()}
     del tr
     torch.cuda.empty_cache()
     phase_learning()
     done("learning")
     cli_launches = phase_cli(smi)
     done("cli")
+    uniform_paths, tr, _ = phase_uniform(smi, trained, stream)
+    del trained
+    for name, rs in phase_step_kernels(tr, "uniform", distinct=True).items():
+        rows[name] += rs
+    del tr
+    done("uniform")
+    # B1 and B2 are one kernel with a precision flag: its rows and launches
+    # split by precision
+    rows["segment_add_f32"] = [r for r in rows["segment_add"]
+                               if " f32 " in r["variant"]]
+    rows["segment_add"] = [r for r in rows["segment_add"]
+                           if " f32 " not in r["variant"]]
+    paths = {"train": train_launches, "eval": eval_launches,
+             "cli": cli_launches, **uniform_paths}
+    for counts in paths.values():
+        counts["segment_add"] -= counts["segment_add_f32"]
     record = []
     for name, source, replaces in KERNELS:
         rs = rows[name]
         worst = max(rs, key=lambda r: r.get("err_over_tol",
                                              r["max_abs_err"] / r["tol"]))
-        by_path = {"train": train_launches[name],
-                   "eval": eval_launches[name],
-                   "cli": cli_launches[name]}
+        by_path = {path: counts[name] for path, counts in paths.items()}
         record.append(dict(name=name, route="cuda", source=source,
                            replaces=replaces,
                            launches=sum(by_path.values()),

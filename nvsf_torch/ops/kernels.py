@@ -10,7 +10,9 @@ built when a module is imported, so the package imports on machines
 without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else. ``segment_add`` counts
+every launch of the segment-add kernel, ``segment_add_f32`` those of its
+f32 variant (B2) again.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ BUILD_ROOT = _PKG.parent / "build" / "nvsf_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"segment_add": 0, "multihot_fwd": 0, "multihot_bwd": 0,
-            "chamfer_min_dist": 0}
+LAUNCHES = {"segment_add": 0, "segment_add_f32": 0, "multihot_fwd": 0,
+            "multihot_bwd": 0, "chamfer_min_dist": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64

@@ -63,6 +63,8 @@ def segment_add_cuda(cols: torch.Tensor, vals: torch.Tensor, T: int,
                               kernels.stream_of(vals))
     kernels.check(lib, rc, "nvsf_segment_add")
     kernels.LAUNCHES["segment_add"] += 1
+    if precision == "f32":
+        kernels.LAUNCHES["segment_add_f32"] += 1
     return out
 
 

@@ -1,10 +1,11 @@
-"""Occupancy-accelerated volume rendering (counterpart of
-``nvsf_tpu/render/renderer.py``: ``near_far_from_aabb``,
-``stratified_segment_jitter``, ``run_occupancy`` for training, and the
-eval-time streaming marcher ``run_occupancy_stream`` /
-``_render_staged_occ`` behind ``render``, the JAX package's
-``render(staged=True)``; the dense uniform ``run`` is not ported yet,
-``ROADMAP.md`` A8).
+"""Volume rendering (counterpart of ``nvsf_tpu/render/renderer.py``):
+``near_far_from_aabb``, the dense uniform ``run`` with its chunked and
+recomputed density query (``remat_chunks``) and its optional importance
+resampling (``sample_pdf``), ``stratified_segment_jitter`` and
+``run_occupancy`` for occupancy-mode training, and ``render``, the JAX
+package's ``render(staged=True)``: chunks of dense ``run`` without an
+occupancy grid, the streaming marcher ``run_occupancy_stream`` /
+``_render_staged_occ`` with one.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from dataclasses import dataclass, field as dc_field
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from nvsf_torch.models.field import NVSFField
 from nvsf_torch.ops.occupancy import OccupancyGrid
@@ -46,6 +48,34 @@ def linspace01(T: int, device=None) -> torch.Tensor:
     return z
 
 
+def sample_pdf(bins, weights, n_samples: int, det: bool = False,
+               u: Optional[torch.Tensor] = None, generator=None):
+    """Inverse-CDF sampling of ``n_samples`` depths per ray
+    (``renderer.py:85-109``): bins [B, T] z values, weights [B, T - 1]
+    -> [B, n_samples]. ``u`` [B, n_samples] (uniform in [0, 1)) replaces
+    the draws from ``generator``; ``det`` takes evenly spaced ones."""
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    shape = cdf.shape[:-1] + (n_samples,)
+    if u is None:
+        if det:
+            u = torch.linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples,
+                               n_samples, device=cdf.device).expand(shape)
+        else:
+            u = torch.rand(shape, generator=generator, device=cdf.device)
+    u = u.contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = (inds - 1).clamp_min(0)
+    above = inds.clamp_max(cdf.shape[-1] - 1)
+    cdf_b, cdf_a = cdf.gather(-1, below), cdf.gather(-1, above)
+    bin_b, bin_a = bins.gather(-1, below), bins.gather(-1, above)
+    denom = torch.where(cdf_a - cdf_b < 1e-5, 1.0, cdf_a - cdf_b)
+    t = (u - cdf_b) / denom
+    return bin_b + t * (bin_a - bin_b)
+
+
 def stratified_segment_jitter(z_sel, sample_dist, T: int, K: int,
                               u: torch.Tensor):
     """Spread compacted samples over their local segments: each z is drawn
@@ -74,10 +104,14 @@ class Renderer:
     lidar_max_depth: float = 0.81
     active_sensor: bool = False
     num_steps: int = 768
+    upsample_steps: int = 0        # > 0: importance resampling in ``run``
     compute_dtype: torch.dtype = torch.float32
+    # > 1: the density query runs in this many sequential chunks, each
+    # recomputed in the backward instead of keeping its activations
+    remat_chunks: int = 1
     occ_jitter: bool = True
     occ_delta_clamp: float = 0.0
-    max_ray_batch: int = 4096      # rays per early-exit chunk at eval
+    max_ray_batch: int = 4096      # rays per render chunk at eval
     stream_slab: int = 16          # samples per early-exit slab at eval
     # host checks of "is any ray of the chunk alive" made by the streaming
     # marcher, one before each slab it may run (a device -> host sync each)
@@ -102,6 +136,138 @@ class Renderer:
         nears, fars = near_far_from_aabb(rays_o, rays_d, self.aabb(dev),
                                          self.min_near)
         return nears[:, None], fars[:, None]
+
+    def _query_density(self, pts, time, cal_lidar_color, skip_warp=False):
+        """The field's density over a flat [M, 3] point batch
+        (``renderer.py:176-200``). With ``remat_chunks`` C > 1 the batch
+        goes through C sequential chunks of near-equal size, each under
+        ``torch.utils.checkpoint`` while gradients are on: the backward
+        recomputes a chunk's encoder internals instead of keeping them for
+        all M points. The outputs are those of one query."""
+        def fn(p):
+            out = self.field.density(p, time, cal_lidar_color=cal_lidar_color,
+                                     compute_dtype=self.compute_dtype,
+                                     skip_warp=skip_warp)
+            return out["sigma"], out["geo_feat"]
+
+        C = self.remat_chunks
+        if C <= 1:
+            sigma, geo = fn(pts)
+            return {"sigma": sigma, "geo_feat": geo}
+        remat = torch.is_grad_enabled()
+        outs = [checkpoint(fn, p, use_reentrant=False,
+                           preserve_rng_state=False) if remat else fn(p)
+                for p in pts.tensor_split(C)]
+        return {"sigma": torch.cat([o[0] for o in outs]),
+                "geo_feat": torch.cat([o[1] for o in outs])}
+
+    def _composite(self, rays_d, xyzs, z_vals, deltas, dout, *,
+                   cal_lidar_color, bg_color, valid=None):
+        """Alpha compositing of N rays x S samples and their colors: the
+        tail shared by ``run`` and ``run_occupancy``. ``valid`` [N, S]
+        masks out empty compacted slots."""
+        N, S = z_vals.shape
+        sigmas = dout["sigma"].reshape(N, S)
+        if valid is not None:
+            sigmas = torch.where(valid, sigmas, 0.0)
+        # LiDAR is an active sensor: light crosses the medium twice
+        exponent = 2.0 if self.active_sensor else 1.0
+        alphas = 1.0 - torch.exp(-exponent * deltas * self.density_scale
+                                 * sigmas)
+        trans = torch.cumprod(
+            torch.cat([torch.ones((N, 1), device=z_vals.device),
+                       1.0 - alphas + 1e-15], dim=-1), dim=-1)[:, :-1]
+        weights = alphas * trans
+
+        dirs = rays_d[:, None, :].expand(N, S, 3)
+        mask = weights > 1e-4
+        if valid is not None:
+            mask = mask & valid
+        rgbs = self.field.color(xyzs.reshape(-1, 3), dirs.reshape(-1, 3),
+                                dout["geo_feat"],
+                                cal_lidar_color=cal_lidar_color,
+                                mask=mask.reshape(-1),
+                                compute_dtype=self.compute_dtype)
+        rgbs = rgbs.reshape(N, S, -1)
+
+        weights_sum = weights.sum(dim=-1)
+        depth = (weights * z_vals).sum(dim=-1)
+        image = (weights[..., None] * rgbs).sum(dim=-2)
+        if cal_lidar_color:
+            return {"depth_lidar": depth, "image_lidar": image,
+                    "weights_sum_lidar": weights_sum,
+                    "weights": weights, "z_vals": z_vals}
+        if bg_color is None:
+            bg_color = 1.0
+        image = image + (1.0 - weights_sum)[..., None] * bg_color
+        return {"depth": depth, "image": image, "weights_sum": weights_sum,
+                "weights": weights, "z_vals": z_vals}
+
+    def run(self, rays_o, rays_d, time, *, cal_lidar_color=False,
+            perturb=False, generator=None,
+            z_noise: Optional[torch.Tensor] = None,
+            resample_u: Optional[torch.Tensor] = None, bg_color=None,
+            skip_warp=False):
+        """Dense uniform rendering of a flat batch of rays
+        (``renderer.py:203-285``): T = ``num_steps`` samples per ray from
+        near to far, the field at all N x T points, composited.
+
+        With ``perturb``, ``z_noise`` [N, T] (uniform in [0, 1)) replaces
+        the jitter's draws from ``generator``; with ``upsample_steps``,
+        ``resample_u`` [N, upsample_steps] replaces the resampling's draws
+        (evenly spaced without ``perturb``, as the reference's keyless
+        render)."""
+        N = rays_o.shape[0]
+        T = self.num_steps
+        dev = rays_o.device
+        aabb = self.aabb(dev)
+        nears, fars = self._near_far(rays_o, rays_d, cal_lidar_color)
+        # the candidates lie (far - near) / (T - 1) apart, sample_dist is
+        # (far - near) / T: the reference's spacing, kept
+        z_vals = nears + (fars - nears) * linspace01(T, dev)[None, :]
+        sample_dist = (fars - nears) / T
+        if perturb:
+            if z_noise is None:
+                z_noise = torch.rand((N, T), generator=generator, device=dev)
+            z_vals = z_vals + (z_noise - 0.5) * sample_dist
+        if self.upsample_steps > 0:
+            z_vals = self._importance_resample(
+                rays_o, rays_d, time, z_vals, sample_dist, cal_lidar_color,
+                det=not perturb, u=resample_u, generator=generator)
+
+        xyzs = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+        xyzs = torch.minimum(torch.maximum(xyzs, aabb[:3]), aabb[3:])
+        dout = self._query_density(xyzs.reshape(-1, 3), time,
+                                   cal_lidar_color, skip_warp=skip_warp)
+        deltas = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
+                            sample_dist.expand(N, 1)], dim=-1)
+        return self._composite(rays_d, xyzs, z_vals, deltas, dout,
+                               cal_lidar_color=cal_lidar_color,
+                               bg_color=bg_color)
+
+    @torch.no_grad()
+    def _importance_resample(self, rays_o, rays_d, time, z_vals, sample_dist,
+                             cal_lidar_color, *, det, u=None, generator=None):
+        """A coarse pass over ``z_vals``, ``upsample_steps`` depths drawn from
+        its weights, merged and sorted (``renderer.py:731-753``; its alphas
+        take no active-sensor exponent, as there)."""
+        N, T = z_vals.shape
+        aabb = self.aabb(rays_o.device)
+        xyzs = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+        xyzs = torch.minimum(torch.maximum(xyzs, aabb[:3]), aabb[3:])
+        sigmas = self.field.density(
+            xyzs.reshape(-1, 3), time, cal_lidar_color=cal_lidar_color,
+            compute_dtype=self.compute_dtype)["sigma"].reshape(N, T)
+        deltas = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
+                            sample_dist.expand(N, 1)], dim=-1)
+        alphas = 1.0 - torch.exp(-deltas * self.density_scale * sigmas)
+        trans = torch.cumprod(
+            torch.cat([torch.ones((N, 1), device=z_vals.device),
+                       1.0 - alphas + 1e-15], dim=-1), dim=-1)[:, :-1]
+        weights = alphas * trans
+        new_z = sample_pdf(z_vals, weights[:, :-1], self.upsample_steps,
+                           det=det, u=u, generator=generator)
+        return torch.sort(torch.cat([z_vals, new_z], dim=-1), dim=-1).values
 
     def run_occupancy(self, rays_o, rays_d, time, occ: OccupancyGrid,
                       occ_grid, *, num_steps_occ: int,
@@ -139,47 +305,15 @@ class Renderer:
 
         xyzs = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
         xyzs = torch.minimum(torch.maximum(xyzs, aabb[:3]), aabb[3:])
-        dout = self.field.density(xyzs.reshape(-1, 3), time,
-                                  cal_lidar_color=cal_lidar_color,
-                                  compute_dtype=self.compute_dtype,
-                                  skip_warp=skip_warp)
-        sigmas = dout["sigma"].reshape(N, K)
-
+        dout = self._query_density(xyzs.reshape(-1, 3), time,
+                                   cal_lidar_color, skip_warp=skip_warp)
         deltas = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
                             sample_dist.expand(N, 1)], dim=-1)
         deltas = torch.minimum(deltas.clamp_min(0.0),
                                self._occ_delta_cap(sample_dist, T, K))
-        sigmas = torch.where(valid, sigmas, 0.0)
-
-        # LiDAR is an active sensor: light crosses the medium twice
-        exponent = 2.0 if self.active_sensor else 1.0
-        alphas = 1.0 - torch.exp(-exponent * deltas * self.density_scale
-                                 * sigmas)
-        trans = torch.cumprod(
-            torch.cat([torch.ones((N, 1), device=dev),
-                       1.0 - alphas + 1e-15], dim=-1), dim=-1)[:, :-1]
-        weights = alphas * trans
-
-        dirs = rays_d[:, None, :].expand(N, K, 3)
-        mask = ((weights > 1e-4) & valid).reshape(-1)
-        rgbs = self.field.color(xyzs.reshape(-1, 3), dirs.reshape(-1, 3),
-                                dout["geo_feat"],
-                                cal_lidar_color=cal_lidar_color, mask=mask,
-                                compute_dtype=self.compute_dtype)
-        rgbs = rgbs.reshape(N, K, -1)
-
-        weights_sum = weights.sum(dim=-1)
-        depth = (weights * z_vals).sum(dim=-1)
-        image = (weights[..., None] * rgbs).sum(dim=-2)
-        if cal_lidar_color:
-            return {"depth_lidar": depth, "image_lidar": image,
-                    "weights_sum_lidar": weights_sum,
-                    "weights": weights, "z_vals": z_vals}
-        if bg_color is None:
-            bg_color = 1.0
-        image = image + (1.0 - weights_sum)[..., None] * bg_color
-        return {"depth": depth, "image": image, "weights_sum": weights_sum,
-                "weights": weights, "z_vals": z_vals}
+        return self._composite(rays_d, xyzs, z_vals, deltas, dout,
+                               cal_lidar_color=cal_lidar_color,
+                               bg_color=bg_color, valid=valid)
 
     # ------------------------------------------------------------------
     # eval: the streaming early-exit marcher (no gradient)
@@ -342,18 +476,32 @@ class Renderer:
         image = image + (1.0 - wsum)[..., None] * bg_color
         return {"depth": depth, "image": image}
 
+    @torch.no_grad()
+    def _render_dense(self, rays_o, rays_d, time, cal_lidar_color, bg_color,
+                      skip_warp=False):
+        """Full-frame dense render: chunks of ``max_ray_batch`` rays through
+        ``run`` without jitter (``renderer.py:783-800``; the last chunk is
+        the remainder rather than padded, which changes no ray's output)."""
+        C = self.max_ray_batch
+        outs = [self.run(rays_o[c:c + C], rays_d[c:c + C], time,
+                         cal_lidar_color=cal_lidar_color, bg_color=bg_color,
+                         skip_warp=skip_warp)
+                for c in range(0, rays_o.shape[0], C)]
+        keys = (("depth_lidar", "image_lidar") if cal_lidar_color
+                else ("depth", "image"))
+        return {k: torch.cat([o[k] for o in outs]) for k in keys}
+
     def render(self, rays_o, rays_d, time, *, cal_lidar_color=False,
                bg_color=None, occ: Optional[OccupancyGrid] = None,
                occ_grid=None, num_steps_occ=None, occ_thresh: float = 0.01,
                skip_warp=False):
-        """Flat [N, 3] ray batch -> outputs through the sorted-chunk
-        early-exit marcher: ``render(staged=True)`` of the JAX package with
-        an occupancy grid (``renderer.py:756-790``). Without a grid it
-        would need the dense uniform ``run``, which is not ported."""
+        """Flat [N, 3] ray batch -> depth and image, the JAX package's
+        ``render(staged=True)`` (``renderer.py:756-800``): through the
+        sorted-chunk early-exit marcher with an occupancy grid, through
+        chunks of the dense ``run`` without one."""
         if occ is None or occ_grid is None:
-            raise NotImplementedError(
-                "rendering without an occupancy grid needs the dense "
-                "uniform run, not ported to nvsf_torch (ROADMAP.md A8)")
+            return self._render_dense(rays_o, rays_d, time, cal_lidar_color,
+                                      bg_color, skip_warp=skip_warp)
         return self._render_staged_occ(
             rays_o, rays_d, time, occ, occ_grid, num_steps_occ, occ_thresh,
             cal_lidar_color, bg_color, skip_warp=skip_warp)

@@ -1,8 +1,10 @@
 """Full-frame LiDAR and camera renders for a list of poses (counterpart of
 ``nvsf_tpu/render/sweep.py:63-128``), on the renderer's device, one frame
 after another. Each frame goes through ``Renderer.render``: the
-occupancy-sorted early-exit marcher. Sharding a sweep over several devices
-(the JAX package's ``mesh`` argument) is not ported (``ROADMAP.md`` A7).
+occupancy-sorted early-exit marcher with an occupancy grid, chunks of the
+dense uniform ``run`` without one. Sharding a sweep over several devices
+(the JAX package's ``mesh`` argument) is not ported (``ROADMAP.md`` A5,
+data parallel).
 """
 
 from __future__ import annotations

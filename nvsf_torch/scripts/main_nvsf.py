@@ -186,7 +186,8 @@ def main(argv=None, device=None):
     if cfg.mesh_shape:
         raise NotImplementedError(
             f"mesh_shape={cfg.mesh_shape!r}: data parallelism is not ported "
-            "to nvsf_torch (ROADMAP.md A7); it trains on one device")
+            "to nvsf_torch (ROADMAP.md A5, data parallel); it trains on "
+            "one device")
     seed_everything(cfg.seed)
     os.makedirs(cfg.workspace, exist_ok=True)
     with open(os.path.join(cfg.workspace, f"args_{cfg.name}.txt"), "w") as f:

@@ -4,10 +4,11 @@ occupancy refresh, the eval renders, checkpoints and the U-Net refine stage
 
 The step samples rays on the device (random, or patch with error-map
 weighting on patch epochs), renders each enabled branch through the
-occupancy-compacted renderer, sums the losses (LiDAR depth / intensity /
-ray-drop, chamfer, scene flow, URF line of sight, the patch structural
-regularizers on patch epochs, camera RGB), runs Adam and updates the error
-maps. Semantics follow the JAX step
+occupancy-compacted renderer (``render_mode="occupancy"``) or the dense
+uniform one (any other mode, the default ``"uniform"``), sums the losses
+(LiDAR depth / intensity / ray-drop, chamfer, scene flow, URF line of
+sight, the patch structural regularizers on patch epochs, camera RGB),
+runs Adam and updates the error maps. Semantics follow the JAX step
 (``nvsf_tpu/train/trainer.py:383-611``, separate-branch path):
 
   - Adam(0.9, 0.99, eps 1e-15) after zeroing NaN gradients, flow /
@@ -16,7 +17,7 @@ maps. Semantics follow the JAX step
   - EMA(0.95) of the parameters once per epoch;
   - patch epochs every ``change_patch_size_epoch`` epochs (counted from
     1), error-map sampling on patch epochs only;
-  - the occupancy grids refreshed by the host every
+  - in occupancy mode, the occupancy grids refreshed by the host every
     ``occ_update_interval`` steps, outside the step.
 
 Every random draw of a step can be injected through ``draws`` (see
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -150,9 +152,6 @@ class Trainer:
             if getattr(cfg, flag):
                 raise NotImplementedError(
                     f"{flag}=True needs {what}, not ported to nvsf_torch")
-        if cfg.render_mode != "occupancy":
-            raise NotImplementedError(
-                "nvsf_torch trains in render_mode='occupancy' only")
         self.cfg = cfg
         self.scene = scene
         self.workspace = cfg.workspace
@@ -190,9 +189,14 @@ class Trainer:
                 and scene.images_lidar is not None:
             self.pc_data = self._process_pointclouds()
 
-        self.occ = OccupancyGrid(grid_size=cfg.occ_grid_size,
-                                 bound=cfg.bound, decay=cfg.occ_decay,
-                                 update_fraction=cfg.occ_update_fraction)
+        # occupancy grids (one per enabled branch) in occupancy mode; the
+        # dense uniform mode has none
+        self.occ = None
+        if cfg.render_mode == "occupancy":
+            self.occ = OccupancyGrid(
+                grid_size=cfg.occ_grid_size, bound=cfg.bound,
+                decay=cfg.occ_decay,
+                update_fraction=cfg.occ_update_fraction)
         init_gen = torch.Generator().manual_seed(seed)
         self.field = NVSFField(
             field_spec_from_config(cfg), generator=init_gen,
@@ -203,7 +207,8 @@ class Trainer:
             min_near_lidar=cfg.min_near_lidar,
             lidar_max_depth=cfg.lidar_max_depth,
             active_sensor=cfg.active_sensor, num_steps=cfg.num_steps,
-            compute_dtype=compute_dtype_of(cfg), occ_jitter=cfg.occ_jitter,
+            compute_dtype=compute_dtype_of(cfg),
+            remat_chunks=cfg.remat_chunks, occ_jitter=cfg.occ_jitter,
             occ_delta_clamp=cfg.occ_delta_clamp,
             max_ray_batch=cfg.max_ray_batch, stream_slab=cfg.stream_slab)
         self.optimizer, self.scheduler = make_optimizer(cfg, self.field)
@@ -218,11 +223,13 @@ class Trainer:
         if cfg.enable_lidar:
             self.error_map = torch.ones(
                 (n, scene.H_lidar // 2, scene.W_lidar // 2), device=dev)
-            self.occ_grid_lidar = self.occ.init(dev)
+            if self.occ is not None:
+                self.occ_grid_lidar = self.occ.init(dev)
         if cfg.enable_rgb:
             self.error_map_rgb = torch.ones(
                 (n, scene.H // 4, scene.W // 4), device=dev)
-            self.occ_grid_rgb = self.occ.init(dev)
+            if self.occ is not None:
+                self.occ_grid_rgb = self.occ.init(dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self._order_rng = np.random.default_rng(seed)
         self.epoch = 0
@@ -370,6 +377,10 @@ class Trainer:
 
         def render(branch, ro, rd, lidar, K, **kw):
             dr = draws.get(f"{branch}_render", {})
+            if self.occ is None:
+                return rend.run(ro, rd, t, cal_lidar_color=lidar,
+                                perturb=True, generator=gen,
+                                z_noise=dr.get("z_noise"), **kw)
             return rend.run_occupancy(
                 ro, rd, t, self.occ, getattr(self, f"occ_grid_{branch}"),
                 num_steps_occ=K, cal_lidar_color=lidar, perturb=True,
@@ -530,6 +541,28 @@ class Trainer:
         parts = {k: float(v) / len(order) for k, v in sums.items()}
         return EpochStats(loss=parts["loss"], parts=parts)
 
+    def train(self, max_epochs: Optional[int] = None,
+              log_fn=print) -> EpochStats:
+        """Epochs ``epoch + 1 .. max_epochs`` (default ``cfg.epochs``), a
+        full checkpoint and a log line every ``eval_interval`` epochs and
+        at the last (``nvsf_tpu/train/trainer.py:789-803``); returns the
+        last epoch's stats (NaN loss when no epoch was left to run)."""
+        cfg = self.cfg
+        max_epochs = max_epochs or cfg.epochs
+        t0 = time.time()
+        stats = EpochStats(loss=float("nan"), parts={})
+        for ep in range(self.epoch + 1, max_epochs + 1):
+            self.epoch = ep
+            stats = self.train_one_epoch()
+            if ep % max(cfg.eval_interval, 1) == 0 or ep == max_epochs:
+                self.save_checkpoint(full=True)
+                log_fn(f"[epoch {ep}] loss={stats.loss:.5f} "
+                       f"({time.time() - t0:.1f}s) parts="
+                       + " ".join(f"{k}={v:.4f}"
+                                  for k, v in stats.parts.items()
+                                  if k != "loss"))
+        return stats
+
     def _occ_refresh_times(self, generator):
         """Stratified, jittered query times over the scene's time span."""
         S = max(int(self.cfg.occ_time_samples), 1)
@@ -544,7 +577,7 @@ class Trainer:
         """Refresh the occupancy grids when global_step has crossed a
         multiple of occ_update_interval since the last refresh."""
         cfg = self.cfg
-        if cfg.occ_update_interval <= 0:
+        if self.occ is None or cfg.occ_update_interval <= 0:
             return
         tick = self.global_step // cfg.occ_update_interval
         if tick == self._last_occ_update:

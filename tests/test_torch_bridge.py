@@ -125,6 +125,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(info.name)\n"
         "import nvsf_torch.train.trainer, chip_smoke\n"
         "import nvsf_torch.scripts.main_nvsf, nvsf_torch.models.unet\n"
+        "import nvsf_torch.scripts.quality_run\n"
         "import nvsf_torch.train.refine, nvsf_torch.train.checkpoint\n"
         "import nvsf_torch.train.test_mode, nvsf_torch.render.export\n"
         "import nvsf_torch.data.kitti360, nvsf_torch.lib.lpips\n"

@@ -35,8 +35,8 @@ from nvsf_torch.train import checkpoint as tckpt
 from test_preprocess import mini_kitti  # noqa: F401  (a fixture)
 from test_torch_models import fields, one_torch_thread  # noqa: F401
 
-# the toy sizes of tests/test_cli.py, in occupancy render mode (the only
-# mode the port trains in) with a 16-sample budget
+# the toy sizes of tests/test_cli.py, in occupancy render mode with a
+# 16-sample budget (tests/test_torch_uniform.py runs the uniform default)
 TOY = ["--render_mode", "occupancy", "--num_steps_occ", "16",
        "--num_rays_lidar", "128", "--num_steps", "32",
        "--max_ray_batch", "256", "--min_resolution", "8",
@@ -210,7 +210,7 @@ def test_cli_novel_sensor_test_on_mini_kitti(kitti_config):
 
 
 def test_cli_refuses_data_parallel_and_missing_checkpoints(tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A5, data parallel"):
         cli_main(["--mesh_shape", "2", "--workspace", str(tmp_path)],
                  device="cpu")
     with pytest.raises(FileNotFoundError, match="no checkpoint"):

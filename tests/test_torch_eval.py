@@ -285,8 +285,10 @@ def test_stream_render_matches_jax(fields, lidar, monkeypatch):  # noqa: F811
                                    err_msg=k, **FWD)
     # 6 chunks of 48 rays x 3 slabs: some chunks exited early
     assert 6 <= trend.slab_checks < 6 * 3, trend.slab_checks
-    with pytest.raises(NotImplementedError, match="A8"):
-        trend.render(tro, trd, torch.tensor(t))
+    # without a grid: the dense uniform chunks of ``run``
+    to = trend.render(tro, trd, torch.tensor(t), cal_lidar_color=lidar)
+    assert set(to) == {dk, ik}
+    assert to[dk].shape == (N,) and to[ik].shape == (N, 2 if lidar else 3)
 
 
 # ----------------------------------------------------------------------
