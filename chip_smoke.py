@@ -38,7 +38,7 @@ Phases, one line each:
                  epochs, 4 frames) must cut the loss below 0.7x.
   7. cli      -- configs/kitti360_1908.txt through the port's CLI
                  (nvsf_torch.scripts.main_nvsf.main) on the synthetic
-                 scene: 16 epochs with evals and checkpoints every 4 and a
+                 scene: 12 epochs with evals and checkpoints every 4 and a
                  device trace, the U-Net refine and the refined eval; then
                  --test --test_eval --use_refine from the refine checkpoint
                  with a novel sensor (a scene without ground truth: the
@@ -58,6 +58,20 @@ Phases, one line each:
                  PointsMeter), the LiDAR frame render timed beside phase
                  5's marcher; the convergence drive of phase 6 in uniform
                  mode.
+  9. kitti    -- raw KITTI-360 to a scored field with the port alone: a raw
+                 tree of sequence 1908 (calibration, poses, 64 HDL-64E-like
+                 Velodyne sweeps, camera PNGs at 1/4 size, a 3D box XML)
+                 through `python -m nvsf_torch.scripts.preprocess_data`
+                 (stage times; native range views held to numpy's), then
+                 the CLI on the config it wrote at the shipped widths: 2
+                 epochs and the eval of the val frames (finite CD, F,
+                 PSNR), the image-load time and the path's launches.
+ 10. joint    -- the joint_fusion step (bench.py's joint-8x4 rung) against
+                 the separate step on one trainer: equal losses in bf16,
+                 equal gradients in f32 (1e-5 of each gradient's max), and
+                 each step's time, device time, kernels, busy share and
+                 peak memory, in turns. Phase 3's "joint" rows hold B1, B3
+                 and B4 on one fused step's inputs.
 
 Any failure raises and the script exits non-zero. The line before the
 last is a JSON record of the kernels (B1 and B2, one kernel with a
@@ -72,7 +86,6 @@ import dataclasses
 import json
 import re
 import shutil
-import struct
 import subprocess
 import sys
 import time
@@ -628,10 +641,12 @@ def phase_step_kernels(tr, label="step", distinct=False):
     phase 8's trainer: one remat chunk's."""
     calls = capture_step_inputs(tr, distinct=distinct)
     field = tr.field
-    names = {field.hash_lidar.static_grid.n_cols: "static hash",
-             field.flow.enc.n_cols: "flow hash",
-             sum(g.grid.n_cols for g in field.hash_lidar.dynamic_grids):
-             "dynamic hash n_grad prefix"}
+    n_dyn = sum(g.grid.n_cols for g in field.hash_lidar.dynamic_grids)
+    n_static = field.hash_lidar.static_grid.n_cols
+    names = {n_static: "static hash", field.flow.enc.n_cols: "flow hash",
+             n_dyn: "dynamic hash n_grad prefix",
+             2 * n_static: "static hash, both branches",
+             2 * n_dyn: "dynamic hash n_grad prefix, both branches"}
     rows = {"segment_add": [], "multihot_fwd": [], "multihot_bwd": []}
     for i, (cols, vals, T, prec) in enumerate(calls["segment_add"]):
         rows["segment_add"].append(segment_add_row(
@@ -924,7 +939,7 @@ def phase_slice(smi):
 EVAL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
 
 
-def settle_for_render(tr, epochs=6, frames=8, refreshes=18):
+def settle_for_render(tr, epochs=4, frames=8, refreshes=18):
     """bench.py's render rung (bench.py:180-188): a few more epochs for
     real surfaces, then whole-grid occupancy refreshes until empty space
     has decayed below the threshold (init 32, decay 0.8: ~16 refreshes),
@@ -1121,7 +1136,7 @@ def phase_eval(tr, smi):
     from nvsf_torch.train.evaluate import evaluate
     t0 = time.perf_counter()
     settle_for_render(tr)
-    log("eval", f"6 more epochs of 8 frames and 18 whole-grid occupancy "
+    log("eval", f"4 more epochs of 8 frames and 18 whole-grid occupancy "
                 f"refreshes in {time.perf_counter() - t0:.1f} s")
     val = make_synthetic_scene(slice_spec(), split="val")
     shutil.rmtree(EVAL_DIR, ignore_errors=True)
@@ -1158,10 +1173,10 @@ def phase_eval(tr, smi):
     assert launches["chamfer_min_dist"] >= 2 * len(res), launches
     assert launches["multihot_fwd"] > 0, launches
 
+    # evaluate rendered a frame of this size just before: no warm-up
     rays = tr.scene.H_lidar * tr.scene.W_lidar
-    tr.render_lidar_frame(0)                        # warm-up
     times, checks0 = [], tr.renderer.slab_checks
-    for _ in range(4):
+    for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = tr.render_lidar_frame(0)             # ends in a host copy
@@ -1169,9 +1184,9 @@ def phase_eval(tr, smi):
     best = min(times)
     every = ", ".join(f"{t * 1e3:.1f}" for t in times)
     log("eval", f"LiDAR frame render (occupancy stream, K' 96 of 768, "
-                f"chunks of 2048): best of 4 {best * 1e3:.1f} ms = "
+                f"chunks of 2048): best of 2 {best * 1e3:.1f} ms = "
                 f"{rays / best:.0f} rays/s (all: {every} ms); "
-                f"{(tr.renderer.slab_checks - checks0) / 4:.0f} slab checks "
+                f"{(tr.renderer.slab_checks - checks0) / 2:.0f} slab checks "
                 f"per frame ({smi})")
     fams, n_kernels, wall, n_rays = profile_render(tr)
     busy = sum(fams.values())
@@ -1238,14 +1253,6 @@ CLI_DIR = REPO / "build" / "chip_smoke_cli"
 UNET_TOL = 1e-4
 
 
-def _png_size(path):
-    """(height, width) from a PNG's IHDR chunk."""
-    with open(path, "rb") as f:
-        head = f.read(24)
-    w, h = struct.unpack(">II", head[16:24])
-    return h, w
-
-
 def _ply_faces(path):
     with open(path) as f:
         for line in f:
@@ -1296,6 +1303,7 @@ def check_unet_against_cpu(tr):
 
 
 def phase_cli(smi):
+    from nvsf_torch.lib.image import png_size
     from nvsf_torch.render.export import extract_density_grid
     from nvsf_torch.scripts.main_nvsf import main as cli_main
     shutil.rmtree(CLI_DIR, ignore_errors=True)
@@ -1306,11 +1314,11 @@ def phase_cli(smi):
         "--dataloader", "synthetic", "--num_frames", "8",
         # the synthetic LiDAR's vertical FoV, and a far plane past its 25 m
         "--intrinsics_lidar", "10.0", "40.0", "--lidar_max_depth", "30",
-        # a short run: 16 epochs of 7 steps (4 epochs leave every ray of the
+        # a short run: 12 epochs of 7 steps (4 epochs leave every ray of the
         # val frame dropped: its CD is NaN and no best checkpoint is
         # written), evals and checkpoints every 4 (patch epochs), 100
         # U-Net refine steps
-        "--epochs", "16", "--eval_interval", "4", "--refine_steps", "100",
+        "--epochs", "12", "--eval_interval", "4", "--refine_steps", "100",
         # an EMA that follows so short a run (evals, refine renders, test
         # renders and the mesh read the EMA; at 0.95 a 16-epoch EMA is
         # still 44 % the random init and its density stays under 2)
@@ -1354,7 +1362,7 @@ def phase_cli(smi):
     # below on a reloaded checkpoint: the run must not have needed one
     assert "[recovery]" not in logs, "the training run restarted an epoch"
     epochs = _epoch_parts(logs)
-    assert sorted(epochs) == [4, 8, 12, 16], f"epochs {sorted(epochs)}"
+    assert sorted(epochs) == [4, 8, 12], f"epochs {sorted(epochs)}"
     for ep, parts in epochs.items():
         bad = [k for k, v in parts.items() if not np.isfinite(v)]
         assert not bad, f"epoch {ep}: non-finite {bad}"
@@ -1366,16 +1374,16 @@ def phase_cli(smi):
     assert len(refine) >= 2 and refine[-1] < refine[0], \
         f"refine losses {refine}"
     ckpts = set(p.name for p in (ws / "checkpoints").iterdir())
-    need = {f"{name}_ep0016.pkl", f"{name}_best.pkl", f"{name}_refine.pkl"}
+    need = {f"{name}_ep0012.pkl", f"{name}_best.pkl", f"{name}_refine.pkl"}
     assert need <= ckpts, f"checkpoints {sorted(ckpts)}"
-    matrix = json.loads((ws / "validation" / f"{name}_ep0016_refined_"
+    matrix = json.loads((ws / "validation" / f"{name}_ep0012_refined_"
                          f"error_matrix_combined.json").read_text())
     bad = _finite_meters(matrix)
     assert not bad, f"refined eval: non-finite {bad}: {matrix}"
     res = ws / "results"
     pngs = sorted(res.glob(f"{name}_*_depth.png"))
     assert len(pngs) == len(tt.scene) and tt.has_unet
-    sizes = {_png_size(p) for p in pngs}
+    sizes = {png_size(p) for p in pngs}
     assert sizes == {(34, 512)}, f"novel-sensor panos {sizes}"
     faces = _ply_faces(res / f"{name}_mesh.ply")
     cfg = tt.cfg
@@ -1509,7 +1517,7 @@ def phase_uniform(smi, trained, stream):
     rays = cfg.num_rays_lidar + cfg.num_rays
     for patch in (False, True):
         kind = "patch" if patch else "random"
-        ms, host_ms = _time_steps(tr, patch, n=2, warmup=1)
+        ms, host_ms = _time_steps(tr, patch, n=1, warmup=1)
         log("uniform", f"steady-state {kind} step: {ms:.1f} ms = "
                        f"{rays / ms * 1e3:.0f} rays/s; host returns after "
                        f"{host_ms:.1f} ms ({smi}) {took()}")
@@ -1607,6 +1615,423 @@ def phase_uniform(smi, trained, stream):
     return {"uniform": launches, "uniform-f32": f32_launches}, tr, losses
 
 
+# ----------------------------------------------------------------------
+# phase 9: a raw KITTI-360 tree through the port's preprocessing and CLI
+# ----------------------------------------------------------------------
+
+KITTI_DIR = REPO / "build" / "chip_smoke_kitti"
+KITTI_REC = "2013_05_28_drive_0000"
+# KITTI-360's published calibration of camera 00 and the Velodyne
+# (calibration/perspective.txt, calib_cam_to_pose.txt,
+# calib_cam_to_velo.txt); P_rect_00 is scaled to the 1/4-size images
+KITTI_P_RECT = (552.554261, 682.049453, 238.769549)
+KITTI_CAM_TO_POSE = (
+    0.0371783278, -0.0986182135, 0.9944306009, 1.5752681039,
+    0.9992675562, -0.0053553387, -0.0378902567, 0.0043914093,
+    0.0090621821, 0.9951109327, 0.0983468786, -0.6500000000)
+KITTI_CAM_TO_VELO = (
+    0.04307104361, -0.08829286498, 0.995162929, 0.8043914418,
+    -0.999004371, 0.007784614041, 0.04392796942, 0.2993489574,
+    -0.01162548558, -0.9960641394, -0.08786966659, -0.1770225824)
+# the Velodyne's height over the road, and the street the sweeps see
+VELO_HEIGHT = 1.73
+WALLS_Y = (9.0, -11.0)          # building fronts left and right
+WALL_TOP = 8.0
+POLE_SPACING, POLE_Y, POLE_R = 15.0, (6.0, -7.5), 0.3
+
+
+def hdl64_sweep(car_x, rng, beams=64, columns=1875):
+    """One HDL-64E-like sweep in the Velodyne frame: 64 beams from +2 to
+    -24.9 degrees, 1875 columns (120,000 returns before drops), each ray
+    hitting the road, a building front, a pole or nothing within 80 m;
+    3 % random drops, 2 cm range noise. Returns [N, 4] f32 x, y, z,
+    intensity."""
+    incl = np.radians(np.linspace(2.0, -24.9, beams))[:, None]
+    az = np.linspace(-np.pi, np.pi, columns, endpoint=False)[None, :] \
+        + rng.uniform(0, 2 * np.pi / columns, (beams, 1))
+    d = np.stack(np.broadcast_arrays(np.cos(incl) * np.cos(az),
+                                     np.cos(incl) * np.sin(az),
+                                     np.sin(incl)), -1).reshape(-1, 3) \
+        .astype(np.float32)
+    t = np.full(len(d), np.inf, np.float32)
+    inten = np.zeros(len(d), np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tg = np.where(d[:, 2] < 0, -VELO_HEIGHT / d[:, 2], np.inf)
+        hit = tg < t
+        t[hit], inten[hit] = tg[hit], 0.15
+        for wy in WALLS_Y:
+            tw = np.where(d[:, 1] * wy > 0, wy / d[:, 1], np.inf)
+            tw[tw * d[:, 2] > WALL_TOP - VELO_HEIGHT] = np.inf
+            hit = tw < t
+            t[hit], inten[hit] = tw[hit], 0.45
+    k = np.floor((car_x - 80.0) / POLE_SPACING) + np.arange(12)
+    c = np.stack(np.broadcast_arrays(k[:, None] * POLE_SPACING - car_x,
+                                     np.array(POLE_Y)[None, :]),
+                 -1).reshape(-1, 2).astype(np.float32)       # [P, 2]
+    a = (d[:, :2] ** 2).sum(-1, keepdims=True)
+    b = d[:, :2] @ c.T                                       # [N, P]
+    disc = b * b - a * ((c ** 2).sum(-1) - POLE_R ** 2)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        tp = np.where(disc > 0, (b - np.sqrt(disc)) / a, np.inf)
+    tp = np.where(tp > 0, tp, np.inf).min(axis=1)
+    hit = tp < t
+    t[hit], inten[hit] = tp[hit], 0.8
+    keep = (t < 80.0) & (rng.uniform(size=len(d)) > 0.03)
+    r = t[keep] + rng.normal(0, 0.02, keep.sum())
+    pts = np.column_stack([d[keep] * r[:, None],
+                           np.clip(inten[keep] + rng.normal(
+                               0, 0.05, keep.sum()), 0, 1)])
+    return pts.astype(np.float32)
+
+
+def write_raw_kitti(src, seq="1908", H=94, W=352, seed=0):
+    """A raw KITTI-360 tree of ``seq`` with its real frame ids: the
+    calibration, one pose a frame (the car driving 1 m a frame along the
+    street), a Velodyne .bin and a camera PNG (1/4 size) a frame, and a 3D
+    box XML. Returns the frame ids."""
+    from nvsf_torch.lib.tools import write_png
+    from nvsf_torch.preprocess.kitti360 import SEQUENCE_SPLITS
+    rng = np.random.default_rng(seed)
+    s, e, _ = SEQUENCE_SPLITS[seq]
+    fids = list(range(s, e + 1))
+    calib = src / "calibration"
+    calib.mkdir(parents=True)
+    f, cx, cy = (v / 4 for v in KITTI_P_RECT)
+    P = f"{f} 0 {cx} 0 0 {f} {cy} 0 0 0 1 0"
+    R = "1 0 0 0 1 0 0 0 1"
+    (calib / "perspective.txt").write_text(
+        f"P_rect_00: {P}\nR_rect_00: {R}\nP_rect_01: {P}\nR_rect_01: {R}\n")
+    c2p = " ".join(map(str, KITTI_CAM_TO_POSE))
+    (calib / "calib_cam_to_pose.txt").write_text(
+        "".join(f"image_0{i}: {c2p}\n" for i in range(4)))
+    (calib / "calib_cam_to_velo.txt").write_text(
+        " ".join(map(str, KITTI_CAM_TO_VELO)) + "\n")
+    poses = src / "data_poses" / f"{KITTI_REC}_sync"
+    poses.mkdir(parents=True)
+    origin = np.array([1063.67, 3765.24, 112.26])
+    lines = []
+    for i, fid in enumerate(fids):
+        T = np.eye(4)
+        T[:3, 3] = origin + [1.0 * i, 0.0, 0.0]
+        lines.append(" ".join([str(fid)] + [repr(float(v)) for v in
+                                            T[:3].reshape(-1)]))
+    (poses / "poses.txt").write_text("\n".join(lines) + "\n")
+    velo = src / "data_3d_raw" / f"{KITTI_REC}_sync" / "velodyne_points" \
+        / "data"
+    cams = src / "data_2d_raw" / f"{KITTI_REC}_sync" / "image_00" \
+        / "data_rect"
+    velo.mkdir(parents=True)
+    cams.mkdir(parents=True)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for i, fid in enumerate(fids):
+        hdl64_sweep(float(i), rng).tofile(velo / f"{fid:010d}.bin")
+        sky = yy < H * 0.45
+        img = np.stack([np.where(sky, 150 + yy, 90 + (xx + 4 * i) % 40),
+                        np.where(sky, 180 + yy // 2, 90 + yy // 3),
+                        np.where(sky, 230 - yy, 80 + (xx // 8) % 20)], -1)
+        img = img + rng.integers(0, 12, img.shape)
+        write_png(cams / f"{fid:010d}.png", np.clip(img, 0, 255))
+    boxes = src / "data_3d_bboxes" / "train_full"
+    boxes.mkdir(parents=True)
+    verts = " ".join(str(v) for x in (-2.2, 2.2) for y in (-0.9, 0.9)
+                     for z in (-0.75, 0.75) for v in (x, y, z))
+    T = np.eye(4)
+    T[:3, 3] = origin + [25.0, 4.0, -VELO_HEIGHT + 0.75]
+    tdata = " ".join(map(str, T.reshape(-1)))
+    (boxes / f"{KITTI_REC}_sync.xml").write_text(
+        f"<?xml version=\"1.0\"?>\n<opencv_storage>\n<object_1>\n"
+        f"  <label>car</label>\n  <timestamp>-1</timestamp>\n"
+        f"  <start_frame>{s}</start_frame>\n  <end_frame>{e}</end_frame>\n"
+        f"  <transform><rows>4</rows><cols>4</cols><data>{tdata}</data>"
+        f"</transform>\n  <vertices><rows>8</rows><cols>3</cols>"
+        f"<data>{verts}</data></vertices>\n</object_1>\n</opencv_storage>\n")
+    return fids
+
+
+def check_rangeviews(src, fids):
+    """The native range views against numpy's projection of the same .bin
+    files: equal within one f32 rounding of projections that agree to
+    1e-9. Returns (frames bit for bit, frames, ms a frame native, ms a
+    frame numpy)."""
+    from nvsf_torch.lib.convert import lidar_to_pano_with_intensities_numpy
+    from nvsf_torch.preprocess import kitti360 as K
+    exact, t_native, t_numpy = 0, 0.0, 0.0
+    for fid in fids:
+        p = K.velodyne_path(src, KITTI_REC, fid)
+        t0 = time.perf_counter()
+        rv = K.bin_to_rangeview(p)
+        t1 = time.perf_counter()
+        pano, inten = lidar_to_pano_with_intensities_numpy(
+            K.read_velodyne_bin(p), K.KITTI_LIDAR_H, K.KITTI_LIDAR_W,
+            K.KITTI_INTRINSICS, K.KITTI_INTRINSICS_HOZ, K.KITTI_MAX_DEPTH)
+        t2 = time.perf_counter()
+        t_native += t1 - t0
+        t_numpy += t2 - t1
+        ref = np.stack([np.zeros_like(pano), inten, pano], -1)
+        np.testing.assert_allclose(rv, ref, rtol=2**-23, atol=1e-9,
+                                   err_msg=f"frame {fid}")
+        exact += int(np.array_equal(rv, ref.astype(np.float32)))
+    n = len(fids)
+    return exact, n, t_native / n * 1e3, t_numpy / n * 1e3
+
+
+def phase_kitti(smi):
+    """Raw KITTI-360 to a trained and scored field on this machine alone:
+    a raw tree of sequence 1908 (its 64 real frame ids; Velodyne sweeps of
+    ~116k returns; camera PNGs at 1/4 size, 94x352, the one cut: a full
+    376x1408 val frame is ~530k rays through the marcher, ~50 s a frame)
+    through ``python -m nvsf_torch.scripts.preprocess_data``; the native
+    range views held to numpy's on 4 frames; then the CLI on the config
+    it wrote at the widths of configs/kitti360_1908.txt (occupancy, K 96 /
+    128, 4 x 8 hash, 4 x 32 flow hash, bf16, enable_rgb): 2 epochs of 60
+    steps, the EMA following the parameters, no U-Net refine (it renders
+    all 60 training frames), then the eval of the 4 val frames. Returns
+    the path's launches."""
+    from nvsf_torch.config import load_config
+    from nvsf_torch.data.kitti360 import load_kitti360_scene
+    from nvsf_torch.lib.image import read_png
+    from nvsf_torch.scripts.main_nvsf import main as cli_main
+    shutil.rmtree(KITTI_DIR, ignore_errors=True)
+    data = KITTI_DIR / "kitti360"
+    src = data / "source_data"
+    t0 = time.perf_counter()
+    fids = write_raw_kitti(src)
+    log("kitti", f"raw tree of sequence 1908: {len(fids)} frames "
+                 f"({fids[0]}-{fids[-1]}) in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    cmd = [sys.executable, "-m", "nvsf_torch.scripts.preprocess_data",
+           "--sequence_name", "1908", "--kitti_root", str(src),
+           "--data_root", str(data), "--config_dir",
+           str(KITTI_DIR / "configs"), "--workspace", str(KITTI_DIR / "ws")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    secs = time.perf_counter() - t0
+    assert proc.returncode == 0, f"{' '.join(cmd)}\n{proc.stdout}" \
+                                 f"{proc.stderr}"
+    for line in proc.stdout.splitlines():
+        log("kitti", line)
+    log("kitti", f"preprocess_data: {secs:.2f} s for {len(fids)} frames, "
+                 f"the process included ({smi})")
+    exact, n, ms_native, ms_numpy = check_rangeviews(src, fids[::16])
+    log("kitti", f"range views native vs numpy on {n} frames: within f32 "
+                 f"rounding, {exact} of {n} bit for bit; {ms_native:.1f} "
+                 f"ms a frame native (read + project), {ms_numpy:.1f} ms "
+                 f"numpy")
+    sweeps = [len(np.fromfile(src / "data_3d_raw" / f"{KITTI_REC}_sync" /
+                              "velodyne_points" / "data" / f"{f:010d}.bin",
+                              np.float32)) // 4 for f in fids[:4]]
+    cfg_path = KITTI_DIR / "configs" / "kitti360_1908.txt"
+    argv = [
+        "--config", str(cfg_path),
+        # the widths of configs/kitti360_1908.txt that the written scene
+        # config leaves at their defaults
+        "--active_sensor", "--render_mode", "occupancy",
+        "--n_levels_hash", "4", "--n_features_per_level_hash", "8",
+        "--flow_n_levels", "4", "--flow_n_features_per_level", "32",
+        "--num_steps_occ", "96", "--num_steps_occ_rgb", "128",
+        "--num_steps_occ_render", "96",
+        # a short run: 2 epochs of 60 steps, the EMA following the
+        # parameters, the eval once at the end, no refine
+        "--epochs", "2", "--eval_interval", "2", "--ema_decay", "0",
+        "--refine_steps", "0", "--workspace", str(KITTI_DIR / "ws")]
+    cfg = load_config(argv).finalize(steps_per_epoch=60)
+    assert cfg.enable_rgb and cfg.fp16 and cfg.flow_loss, cfg
+    pngs = sorted((src / "data_2d_raw").rglob("*.png"))
+    t0 = time.perf_counter()
+    for p in pngs:
+        read_png(p)
+    t_png = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = load_kitti360_scene(cfg, "train")
+    t_load = time.perf_counter() - t0
+    assert scene.images.shape == (60, 94, 352, 3), scene.images.shape
+    assert len(scene.annotations) == 60 and scene.annotations[0]
+    log("kitti", f"image load: {len(pngs)} PNGs decoded in "
+                 f"{t_png * 1e3:.0f} ms ({t_png / len(pngs) * 1e3:.2f} ms "
+                 f"each); the train split (60 frames: panos, images, "
+                 f"pseudo-depths, boxes) loaded in {t_load:.2f} s; sweeps "
+                 f"of {sweeps} returns")
+    del scene
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = cli_main(argv)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    ws = KITTI_DIR / "ws"
+    logs = (ws / f"log_{tr.name}.txt").read_text()
+    assert "[recovery]" not in logs, "the training run restarted an epoch"
+    epochs = _epoch_parts(logs)
+    assert sorted(epochs) == [2], f"epochs {sorted(epochs)}"
+    bad = [k for k, v in epochs[2].items() if not np.isfinite(v)]
+    assert not bad, f"non-finite losses {bad}"
+    for stage, secs in tr.timers.totals.items():
+        log("kitti", f"stage {stage:16s} {secs:9.3f} s "
+                     f"({tr.timers.counts[stage]}x)")
+    scores = {}
+    for cat in ("combined", "static", "dynamic"):
+        path = ws / "validation" / f"{tr.name}_ep0002_error_matrix_{cat}.json"
+        if path.exists():
+            m = json.loads(path.read_text())
+            scores[cat] = {"CD": m["point"][0], "F-score": m["point"][1],
+                           "PSNR": m["rgb_psnr"]}
+    key = scores["combined"]
+    bad = [k for k, v in key.items() if not np.isfinite(v)]
+    assert not bad, f"non-finite {bad} in the val eval: {scores}"
+    missing = [k for k in ("segment_add", "multihot_fwd", "multihot_bwd",
+                           "chamfer_min_dist") if launches[k] == 0]
+    assert not missing, f"kernels not launched by the KITTI path: {missing}"
+    log("kitti", f"CLI run {t_run:.1f} s ({tr.global_step} steps, then "
+                 f"the eval of the 4 val frames at 66x1030 and 94x352); "
+                 f"val eval {scores}; epoch 2 parts {epochs[2]}; launches "
+                 f"{launches} ({smi})")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 10: the joint_fusion step against the separate step
+# ----------------------------------------------------------------------
+
+def joint_8x4_config(spec, **over):
+    """bench.py's "joint-8x4" rung (bench.py:64-66) on phase 4's scene:
+    2048 + 2048 rays, 768 candidates compacted to K = 128 for both
+    branches, the reference's encoder widths (hash 8 x 4, flow hash
+    16 x 8), flow and URF losses, bf16."""
+    kw = dict(num_steps_occ=128, num_steps_occ_rgb=128, n_levels_hash=8,
+              n_features_per_level_hash=4, flow_n_levels=16,
+              flow_n_features_per_level=8)
+    kw.update(over)
+    return dataclasses.replace(joint_tuned_config(spec), **kw)
+
+
+def _render_draws(cfg, gen):
+    """The z-noise and jitter draws of one step's two renders."""
+    return {f"{b}_render": {
+        "z_noise": torch.rand((n, cfg.num_steps), generator=gen,
+                              device=gen.device),
+        "jitter_u": torch.rand((n, cfg.num_steps_occ), generator=gen,
+                               device=gen.device)}
+        for b, n in (("lidar", cfg.num_rays_lidar), ("rgb", cfg.num_rays))}
+
+
+def joint_vs_separate(tr, fi=3, f32=False, seed=0):
+    """One step's loss and gradients through the fused path and through
+    the separate one, from the same state and draws (the sampler's
+    generator reseeded, the render draws given, both from ``seed``); with
+    ``f32`` in f32 (the table gradients then run B2). Returns the two
+    losses, the worst gradient and its error over the gradient's largest
+    magnitude."""
+    rend, field = tr.renderer, tr.field
+    saved = (rend.compute_dtype, field.table_grad_precision, tr.joint)
+    if f32:
+        rend.compute_dtype, field.table_grad_precision = torch.float32, "f32"
+    out = {}
+    try:
+        for joint in (True, False):
+            tr.joint = joint
+            tr.generator.manual_seed(4321 + seed)
+            draws = _render_draws(tr.cfg, torch.Generator(tr.device)
+                                  .manual_seed(8765 + seed))
+            field.zero_grad(set_to_none=True)
+            loss, _, _ = tr.loss_and_grads(fi, False, draws)
+            out[joint] = (float(loss), {
+                k: p.grad.detach().clone() for k, p in
+                field.named_parameters() if p.grad is not None})
+            field.zero_grad(set_to_none=True)
+    finally:
+        rend.compute_dtype, field.table_grad_precision, tr.joint = saved
+    (lj, gj), (ls, gs) = out[True], out[False]
+    assert set(gj) == set(gs), sorted(set(gj) ^ set(gs))
+    rel = {k: float((gj[k] - gs[k]).abs().max())
+           / max(float(gs[k].abs().max()), 1e-30) for k in gs}
+    worst = max(rel, key=rel.get)
+    return lj, ls, worst, rel[worst]
+
+
+# bf16 step losses, fused against separate, at JOINT_BF16_SEEDS states and
+# draws: the same per-sample functions, but the sigma net's bf16 matmuls
+# run on another batch size, which may take another kernel that sums in
+# another order. On the H100 the two losses came out bit-equal at every
+# seed (PERF.md section 6); the tolerance is ~8 f32 ulps of the loss
+JOINT_BF16_RTOL = 1e-6
+JOINT_BF16_SEEDS = 4
+
+
+def phase_joint(smi):
+    """The joint_fusion step against the separate step at full width, on
+    one trainer (``Trainer.joint`` switched between them): one fused epoch
+    (the "joint" launches), the two paths' equivalence in bf16 (at
+    JOINT_BF16_SEEDS states and draws) and in f32, then each step timed in
+    turns (separate, fused, fused, separate; median of 5 after 2 warm-up
+    steps each), profiled, and its peak memory.
+    Returns the launches and the trainer."""
+    from nvsf_torch.train.trainer import Trainer
+    spec, scene = slice_scene()
+    cfg = joint_8x4_config(spec, joint_fusion=True)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, scene, seed=0, device="cuda")
+    assert tr.joint
+    kernels.reset_launch_counts()
+    tr.epoch = 1
+    st = tr.train_one_epoch()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log("joint", f"joint-8x4 (hash 8x4, flow 16x8, K 128 / 128, "
+                 f"{cfg.num_rays_lidar} + {cfg.num_rays} rays, bf16): setup "
+                 f"and one fused epoch of {len(scene)} steps "
+                 f"{time.perf_counter() - t0:.1f} s, loss {st.loss:.5f}; "
+                 f"launches {launches}")
+    bad = [k for k, v in st.parts.items() if not np.isfinite(v)]
+    assert not bad, f"non-finite losses: {bad}"
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    assert not missing, f"kernels not launched by the fused step: {missing}"
+    gaps = []
+    for seed in range(JOINT_BF16_SEEDS):
+        fi = (3 + 4 * seed) % len(scene)
+        lj, ls, worst, err = joint_vs_separate(tr, fi, seed=seed)
+        gaps.append(abs(lj - ls) / abs(ls))
+        log("joint", f"bf16 step {fi} from one state and draws (seed "
+                     f"{seed}): loss fused {lj!r} separate {ls!r}, gap "
+                     f"{gaps[-1]:.3e} of it; worst gradient {worst} "
+                     f"{err:.2e} of its max")
+    assert max(gaps) <= JOINT_BF16_RTOL, (gaps, JOINT_BF16_RTOL)
+    log("joint", f"bf16 loss gaps over {JOINT_BF16_SEEDS} seeds: largest "
+                 f"{max(gaps):.3e} (rtol {JOINT_BF16_RTOL})")
+    lj, ls, worst, err = joint_vs_separate(tr, f32=True)
+    assert abs(lj - ls) <= 1e-5 * abs(ls), (lj, ls)
+    assert err <= 1e-5, f"fused vs separate: gradient {worst} {err:.3e}"
+    log("joint", f"f32 step: loss fused {lj:.7g} separate {ls:.7g}; worst "
+                 f"gradient {worst} {err:.2e} of its max (tol 1e-5)")
+    rays = cfg.num_rays_lidar + cfg.num_rays
+    times, mem = {True: [], False: []}, {}
+    for joint in (False, True, True, False):
+        tr.joint = joint
+        torch.cuda.reset_peak_memory_stats()
+        ms, host_ms = _time_steps(tr, False, n=5, warmup=2)
+        times[joint].append(ms)
+        mem[joint] = max(mem.get(joint, 0.0),
+                         torch.cuda.max_memory_allocated() / 2**30)
+        log("joint", f"{'fused' if joint else 'separate'} step: {ms:.1f} ms"
+                     f" = {rays / ms * 1e3:.0f} rays/s; host returns after "
+                     f"{host_ms:.1f} ms")
+    for joint in (False, True):
+        tr.joint = joint
+        name = "fused" if joint else "separate"
+        ms = float(np.median(times[joint]))
+        fams, per_step = profile_device(
+            lambda i: tr.train_step(i % len(tr.scene), False), n=2)
+        busy = sum(fams.values())
+        log("joint", f"{name} step: {ms:.1f} ms (median of its two rounds "
+                     f"{times[joint]}); device time {busy:.1f} ms in "
+                     f"{per_step} kernels; busy share {busy / ms:.2f}; peak "
+                     f"memory {mem[joint]:.2f} GiB ({smi})")
+        for f, fms in sorted(fams.items(), key=lambda kv: -kv[1]):
+            log("profile", f"  joint-8x4 {name} {f:22s} {fms:8.2f} ms/step")
+    tr.joint = True
+    return launches, tr
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1641,6 +2066,13 @@ def main():
         rows[name] += rs
     del tr
     done("uniform")
+    kitti_launches = phase_kitti(smi)
+    done("kitti")
+    joint_launches, tr = phase_joint(smi)
+    for name, rs in phase_step_kernels(tr, "joint").items():
+        rows[name] += rs
+    del tr
+    done("joint")
     # B1 and B2 are one kernel with a precision flag: its rows and launches
     # split by precision
     rows["segment_add_f32"] = [r for r in rows["segment_add"]
@@ -1648,7 +2080,8 @@ def main():
     rows["segment_add"] = [r for r in rows["segment_add"]
                            if " f32 " not in r["variant"]]
     paths = {"train": train_launches, "eval": eval_launches,
-             "cli": cli_launches, **uniform_paths}
+             "cli": cli_launches, **uniform_paths, "kitti": kitti_launches,
+             "joint": joint_launches}
     for counts in paths.values():
         counts["segment_add"] -= counts["segment_add_f32"]
     record = []

@@ -38,6 +38,11 @@
 //  3. segment_add_transpose_kernel turns [T, F] into [F, T] through
 //     shared-memory tiles of 256 slots, coalesced on both sides
 //     (2 x 4FT bytes: 128 MB at the static hash, ~0.04 ms at the HBM rate).
+//     At F = 1 the two layouts are one: the wrapper passes the zeroed output
+//     as the scratch and there is no transpose. F = 1 also gets its own
+//     instantiation, which holds one value a thread in registers instead of
+//     the runtime-F path's 32-entry arrays (the reference widths' dynamic
+//     hash tables: 4 features over 4 time bases).
 // Columns outside [0, T) are dropped, as an XLA scatter drops them. Both
 // grids are the blocks the device can hold resident (SM count x occupancy),
 // grid-stride. The wrapper allocates the scratch and the output.
@@ -143,7 +148,7 @@ cudaError_t launch(const int32_t* cols, const float* vals, int64_t ld,
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  if (T > 0) {
+  if (T > 0 && rows != out) {
     const size_t smem = (size_t)kTile * (F + 1) * sizeof(float);
     e = nvsf::resident_blocks(segment_add_transpose_kernel<kF>, kThreads,
                               smem, &blocks);
@@ -164,18 +169,21 @@ extern "C" const char* nvsf_error_string(int err) {
 
 // cols: int32 [M]; vals: f32 [F, >= M] with row stride ld; rows: f32 [T, F]
 // scratch, zeroed by the caller; out: f32 [F, T], written whole. F <= 32.
+// rows == out (F = 1 only, zeroed by the caller) accumulates in place.
 // Returns cudaGetLastError() after the launches.
 extern "C" int nvsf_segment_add(const void* cols, const void* vals, int64_t ld,
                                 void* rows, void* out, int64_t T, int64_t M,
                                 int F, int round_bf16, void* stream) {
   if (F < 0 || F > kMaxF || T < 0) return (int)cudaErrorInvalidValue;
   if (F == 0) return (int)cudaGetLastError();
+  if (rows == out && F != 1) return (int)cudaErrorInvalidValue;
   const auto* c = (const int32_t*)cols;
   const auto* v = (const float*)vals;
   auto* r = (float*)rows;
   auto* o = (float*)out;
   auto s = (cudaStream_t)stream;
   switch (F) {
+    case 1: return (int)launch<1>(c, v, ld, r, o, T, M, F, round_bf16, s);
     case 2: return (int)launch<2>(c, v, ld, r, o, T, M, F, round_bf16, s);
     case 8: return (int)launch<8>(c, v, ld, r, o, T, M, F, round_bf16, s);
     default: return (int)launch<0>(c, v, ld, r, o, T, M, F, round_bf16, s);

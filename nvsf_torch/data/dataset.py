@@ -1,7 +1,9 @@
 """Scene data held as host numpy arrays, and the loader of a preprocessed
 sequence with its novel-sensor overrides (counterpart of
-``nvsf_tpu/data/dataset.py``, which cannot be imported without JAX). The
-trainer moves the arrays to its device once."""
+``nvsf_tpu/data/dataset.py``, which cannot be imported without JAX). Camera
+images are read by the port's own PNG decoder and area resize
+(``lib/image.py``), so no image package is needed. The trainer moves the
+arrays to its device once."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional
 import numpy as np
 
 from nvsf_torch.lib import convert, pose as poselib, rays as raylib
+from nvsf_torch.lib.image import read_png, resize_area
 
 
 @dataclass
@@ -45,17 +48,6 @@ class SceneData:
     def __len__(self):
         return len(self.poses_lidar) if self.poses_lidar is not None \
             else len(self.poses)
-
-
-def _cv2():
-    """OpenCV reads and resizes the camera images; only RGB scenes need it."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError("loading camera images needs OpenCV (cv2), which "
-                          "is not installed; load a LiDAR-only scene "
-                          "(enable_rgb off) or install opencv") from e
-    return cv2
 
 
 # ----------------------------------------------------------------------
@@ -108,15 +100,10 @@ def load_scene(root_path: str, sequence_id: str, split: str, *,
         frame_ids.append(f["frame_id"])
 
         if enable_rgb:
-            cv2 = _cv2()
             pose = np.array(f["transform_matrix"], np.float32)
-            img = cv2.imread(os.path.join(root_path, f["file_path"]),
-                             cv2.IMREAD_UNCHANGED)
-            img = cv2.cvtColor(
-                img, cv2.COLOR_BGRA2RGBA if img.shape[-1] == 4
-                else cv2.COLOR_BGR2RGB)
+            img = read_png(os.path.join(root_path, f["file_path"]))
             if H and (img.shape[0] != H or img.shape[1] != W):
-                img = cv2.resize(img, (W, H), interpolation=cv2.INTER_AREA)
+                img = resize_area(img, W, H)
             poses.append(pose)
             images.append(img.astype(np.float32) / 255.0)
             # lidar -> camera pseudo-depth (``base_dataset.py:152-157``)

@@ -1,7 +1,7 @@
 """KITTI-360 scenes: a preprocessed sequence split and its 3D box
 annotations (counterpart of ``nvsf_tpu/data/kitti360.py``, with the port's
 copy of ``load_3d_annotations`` from ``nvsf_tpu/preprocess/kitti360.py``;
-the raw-data preprocessing itself is not ported)."""
+the raw-data preprocessing is ``nvsf_torch/preprocess/kitti360.py``)."""
 
 from __future__ import annotations
 

@@ -210,6 +210,81 @@ class NVSFField(nn.Module):
                            compute_dtype).to(torch.float32)
         return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
 
+    def density_joint(self, x_l, x_c, t, compute_dtype=torch.float32,
+                      x_flow_extra=None):
+        """``density`` of the LiDAR points ``x_l`` and the camera points
+        ``x_c`` at one scalar t, with each encoder family run once for
+        both branches (``nvsf_tpu/models/field.py:270-378``): one static
+        hash gather, one dynamic hash gather over both branches' three
+        temporal queries, one K-planes sampler call for the static planes
+        and one for all six dynamic queries, one flow batch (both
+        branches and the optional ``x_flow_extra`` [E, 3] points of the
+        flow loss) and one sigma-net batch.
+
+        Returns {"sigma_l", "geo_feat_l", "sigma_c", "geo_feat_c"[,
+        "flow_extra"]}."""
+        hashes = [self.hash_lidar, self.hash_camera]
+        planes = [self.planes_lidar, self.planes_camera]
+        prec = self.table_grad_precision
+        nf = self.spec.num_frames
+        b = self.spec.bound
+        N_l, N_c = x_l.shape[0], x_c.shape[0]
+        xn_l = (x_l + b) / (2 * b)
+        xn_c = (x_c + b) / (2 * b)
+        t = self._scalar_time(t, x_l)
+        frame_idx = torch.floor(t * (nf - 1))
+
+        hash_s_l, hash_s_c = HashGrid4D.apply_static_joint(
+            hashes, [xn_l, xn_c], prec)
+
+        xn_all = [xn_l, xn_c]
+        if x_flow_extra is not None:
+            xn_all.append((x_flow_extra + b) / (2 * b))
+        xn_all = torch.cat(xn_all)
+        xt_all = torch.cat([xn_all, t.expand(xn_all.shape[0], 1)], dim=-1)
+        flow_all = self.flow(xt_all, compute_dtype, prec)
+        flow_l, flow_c = flow_all[:N_l], flow_all[N_l:N_l + N_c]
+
+        # warp times are (frame_idx ± 1) / num_frames, as upstream
+        t1 = (frame_idx + 1) / nf
+        t2 = (frame_idx - 1) / nf
+        has_next = frame_idx < nf - 1
+        has_prev = frame_idx > 0
+        qs = [(xn, xn + fl[:, :3], xn + fl[:, 3:])
+              for xn, fl in ((xn_l, flow_l), (xn_c, flow_c))]
+        hq_l, hq_c = HashGrid4D.apply_dynamic_fused3_joint(
+            hashes, qs, t, t1, t2, prec)
+        plane_s_l, plane_s_c = Planes4D.apply_static_joint(
+            planes, [xt_all[:N_l], xt_all[N_l:N_l + N_c]])
+        ts3 = torch.stack([t, t1, t2])
+        pq_l, pq_c = Planes4D.apply_dynamic_multi_branches(planes, [
+            torch.cat([torch.stack(q), ts3[:, None, None].expand(
+                3, q[0].shape[0], 1)], dim=-1) for q in qs])
+
+        def blend(pq, hq):
+            (p_d, p_1, p_2), (h_d, h_1, h_2) = pq, hq
+            h_1 = torch.where(has_next, h_1, h_d)
+            p_1 = torch.where(has_next, p_1, p_d)
+            h_2 = torch.where(has_prev, h_2, h_d)
+            p_2 = torch.where(has_prev, p_2, p_d)
+            return (0.5 * p_d + 0.25 * (p_1 + p_2),
+                    0.5 * h_d + 0.25 * (h_1 + h_2))
+
+        plane_d_l, hash_d_l = blend(pq_l, hq_l)
+        plane_d_c, hash_d_c = blend(pq_c, hq_c)
+        h = self.sigma_net(torch.cat([
+            torch.cat([plane_s_l, plane_d_l, hash_s_l, hash_d_l], -1),
+            torch.cat([plane_s_c, plane_d_c, hash_s_c, hash_d_c], -1)]),
+            compute_dtype).to(torch.float32)
+        sigma = trunc_exp(h[..., 0])
+        out = {"sigma_l": sigma[:N_l], "geo_feat_l": h[:N_l, 1:],
+               "sigma_c": sigma[N_l:], "geo_feat_c": h[N_l:, 1:]}
+        if x_flow_extra is not None:
+            fe = flow_all[N_l + N_c:]
+            out["flow_extra"] = {"flow_forward": fe[:, :3],
+                                 "flow_backward": fe[:, 3:]}
+        return out
+
     def color(self, x, d, geo_feat, cal_lidar_color=False, mask=None,
               compute_dtype=torch.float32):
         """d: [N, 3] view dirs in [-1, 1] -> LiDAR [N, 2] (raydrop,

@@ -279,20 +279,74 @@ class HashGrid4D(nn.Module):
         t-query carries gradient; the warp queries' positions, folded tables
         and gathered values are detached (the reference's no_grad
         re-queries)."""
-        cols0, wcs0 = self._dynamic_cols_weights(x)
-        tb0 = self._dynamic_folded(t)
-        with torch.no_grad():
-            cols1, wcs1 = self._dynamic_cols_weights(x1.detach())
-            cols2, wcs2 = self._dynamic_cols_weights(x2.detach())
-            tb1 = self._dynamic_folded(t1)
-            tb2 = self._dynamic_folded(t2)
-        S = tb0.shape[1]
-        table = torch.cat([tb0, tb1, tb2], dim=1)
-        n = cols0.shape[0]
-        cols = torch.cat([cols0, cols1 + S, cols2 + 2 * S])
-        vals = table_gather(table, cols, n_grad=n, grad_cols_T=S,
-                            precision=precision)
-        out0 = self._assemble(vals[:, :n], wcs0)
-        out1 = self._assemble(vals[:, n:2 * n].detach(), wcs1)
-        out2 = self._assemble(vals[:, 2 * n:].detach(), wcs2)
-        return out0, out1, out2
+        return HashGrid4D.apply_dynamic_fused3_joint(
+            [self], [(x, x1, x2)], t, t1, t2, precision)[0]
+
+    # ------------------------------------------------------------------
+    # several branches (LiDAR, camera) in one gather per encoder family
+    # ------------------------------------------------------------------
+    @staticmethod
+    def apply_static_joint(grids, xs, precision="f32"):
+        """``apply_static`` of each grid in ``grids`` at its points in
+        ``xs``, in one gather over the branches' static tables laid side
+        by side, branch ``bi``'s columns offset by ``bi * n_cols``; every
+        branch's table takes its gradient from the one segment-add of that
+        gather. Returns one [N_i, L*F] array per branch
+        (``nvsf_tpu/models/hash_grid.py:321-348``)."""
+        enc = grids[0].static_grid
+        cols_all, wcs = [], []
+        for bi, x in enumerate(xs):
+            cols, wc = enc.level_cols_weights(x)
+            cols_all.append(cols + bi * enc.n_cols)
+            wcs.append(wc)
+        table = torch.cat([g.static for g in grids], dim=1)
+        vals = table_gather(table, torch.cat(cols_all), precision=precision)
+        outs, p = [], 0
+        for wc in wcs:
+            n = wc.numel()
+            outs.append(_reduce_corners(vals[:, p:p + n], wc))
+            p += n
+        return outs
+
+    @staticmethod
+    def apply_dynamic_fused3_joint(grids, xs_list, t, t1, t2,
+                                   precision="f32"):
+        """``apply_dynamic_fused3`` of several branches in one gather
+        (``nvsf_tpu/models/hash_grid.py:429-481``). ``xs_list`` holds each
+        branch's (x, x1, x2). The rows run [b0_t, b1_t, ..., b0_t1, b0_t2,
+        b1_t1, b1_t2, ...]: the gradient-carrying t-queries form the row
+        prefix (``n_grad``) and their folded tables the column prefix
+        (``B * S``), so one segment-add covers every branch; the warp
+        queries stay detached. Returns one (feat_t, feat_t1, feat_t2) per
+        branch."""
+        B = len(grids)
+        grad_cols, grad_tbls, grad_wcs = [], [], []
+        warp_cols, warp_tbls, warp_wcs = [], [], []
+        for bi, (g, (x, x1, x2)) in enumerate(zip(grids, xs_list)):
+            cols0, wcs0 = g._dynamic_cols_weights(x)
+            tb0 = g._dynamic_folded(t)
+            S = tb0.shape[1]
+            grad_cols.append(cols0 + bi * S)
+            grad_tbls.append(tb0)
+            grad_wcs.append(wcs0)
+            with torch.no_grad():
+                for xw, tw in ((x1, t1), (x2, t2)):
+                    cols, wcs = g._dynamic_cols_weights(xw.detach())
+                    warp_cols.append(cols)
+                    warp_tbls.append(g._dynamic_folded(tw))
+                    warp_wcs.append(wcs)
+        # the warp tables sit after the B gradient tables
+        warp_cols = [c + (B + wi) * S for wi, c in enumerate(warp_cols)]
+        n_grad = sum(c.shape[0] for c in grad_cols)
+        vals = table_gather(torch.cat(grad_tbls + warp_tbls, dim=1),
+                            torch.cat(grad_cols + warp_cols), n_grad=n_grad,
+                            grad_cols_T=B * S, precision=precision)
+        outs, p = [], 0
+        for wcs in grad_wcs + warp_wcs:
+            n = sum(wc.numel() for wc in wcs)
+            v = vals[:, p:p + n]
+            outs.append(HashGrid4D._assemble(v if p < n_grad else v.detach(),
+                                             wcs))
+            p += n
+        return [(outs[bi], outs[B + 2 * bi], outs[B + 2 * bi + 1])
+                for bi in range(B)]

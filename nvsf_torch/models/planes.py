@@ -32,19 +32,29 @@ def _lerp_coords(u, n):
     return x0, x1, x - x0.to(x.dtype)
 
 
-def bilinear_sample_fmajor(plane_flat, H, W, u, v):
+def bilinear_sample_fmajor(plane_flat, H, W, u, v, offset=0):
     """Sample a [F, H*W] plane at (u -> W axis, v -> H axis) with
-    align_corners and border clamping -> [F, N]."""
+    align_corners and border clamping -> [F, N]. ``offset`` (per point)
+    shifts the flat columns, for planes laid side by side."""
     x0, x1, wx = _lerp_coords(u, W)
     y0, y1, wy = _lerp_coords(v, H)
 
     def gather(yy, xx):
-        return plane_flat.index_select(1, yy * W + xx)
+        return plane_flat.index_select(1, yy * W + xx + offset)
 
     return (gather(y0, x0) * ((1 - wx) * (1 - wy))[None]
             + gather(y0, x1) * (wx * (1 - wy))[None]
             + gather(y1, x0) * ((1 - wx) * wy)[None]
             + gather(y1, x1) * (wx * wy)[None])
+
+
+def _cat(ts, dim=0):
+    return ts[0] if len(ts) == 1 else torch.cat(ts, dim=dim)
+
+
+def _pad_to(a, n):
+    """Zero-pad the last axis of ``a`` to length ``n``."""
+    return a if a.shape[-1] == n else Fn.pad(a, (0, n - a.shape[-1]))
 
 
 def bilinear_cols_weights(u, v, H, W):
@@ -96,46 +106,7 @@ class Planes4D(nn.ModuleList):
 
     def apply_static(self, xt):
         """xt: [N, 4] in [0,1] -> [N, S*F] static features."""
-        S = len(self.multiscale_res)
-        F = self.output_dim
-        N = xt.shape[0]
-        coarse = [si for si in range(S)
-                  if max(self.plane_hw(si, ci)[0] * self.plane_hw(si, ci)[1]
-                         for ci in STATIC) <= self.MULTIHOT_MAX_W]
-        per_scale = {}
-        if coarse:
-            tables, cols, ws = [], [], []
-            for si in coarse:
-                for ci in STATIC:
-                    a, b = COO_COMBS[ci]
-                    H, W = self.plane_hw(si, ci)
-                    tables.append(Fn.pad(self[si][ci],
-                                         (0, self.MULTIHOT_MAX_W - H * W)))
-                    c4, w4 = bilinear_cols_weights(xt[:, a], xt[:, b], H, W)
-                    cols.append(c4)
-                    ws.append(w4)
-            SP = len(tables)
-            feats = multihot_sample(
-                torch.cat(tables, dim=1),
-                torch.stack(cols).reshape(1, SP, 4, N),
-                torch.stack(ws).reshape(1, SP, 4, N),
-                self.MULTIHOT_MAX_W, need_dw=False)
-            feats = feats[0].reshape(len(coarse), len(STATIC), F, N)
-            feats = feats[:, 0] * feats[:, 1] * feats[:, 2]
-            for k, si in enumerate(coarse):
-                per_scale[si] = feats[k]
-        for si in range(S):
-            if si in per_scale:
-                continue
-            feat = None
-            for ci in STATIC:
-                a, b = COO_COMBS[ci]
-                H, W = self.plane_hw(si, ci)
-                f = bilinear_sample_fmajor(self[si][ci], H, W, xt[:, a],
-                                           xt[:, b])
-                feat = f if feat is None else feat * f
-            per_scale[si] = feat
-        return torch.cat([per_scale[si] for si in range(S)], dim=0).t()
+        return Planes4D.apply_static_joint([self], [xt])[0]
 
     def apply_dynamic(self, xt):
         return self.apply_dynamic_multi(xt[None])[0]
@@ -147,35 +118,112 @@ class Planes4D(nn.ModuleList):
         each query samples 1-D tables of width <= DYN_W_PAD with two lerp
         corners. Gradients reach the tables and, through the lerp weights,
         the query positions (the flow field)."""
-        Q, N, _ = xts.shape
-        F = self.output_dim
-        S = len(self.multiscale_res)
-        W_PAD = self.DYN_W_PAD
+        return Planes4D.apply_dynamic_multi_branches([self], [xts])[0]
+
+    def _coarse_static(self):
+        """Scales whose static planes all fit in MULTIHOT_MAX_W slots."""
+        return [si for si in range(len(self.multiscale_res))
+                if max(self.plane_hw(si, ci)[0] * self.plane_hw(si, ci)[1]
+                       for ci in STATIC) <= self.MULTIHOT_MAX_W]
+
+    @staticmethod
+    def apply_static_joint(planes_list, xt_list):
+        """``apply_static`` of several branches: the coarse scales of every
+        branch in one ``multihot_sample`` (segments ordered branch, scale,
+        plane; each branch's points padded to the longest with zero
+        weights), each fine-scale plane in one gather over the branches'
+        tables laid side by side (``nvsf_tpu/models/planes.py:235-320``).
+        Returns one [N_i, S*F] array per branch."""
+        pl = planes_list[0]
+        B, S, F = len(planes_list), len(pl.multiscale_res), pl.output_dim
+        ns = [xt.shape[0] for xt in xt_list]
+        Np = max(ns)
+        coarse = pl._coarse_static()
+        per_branch = [dict() for _ in range(B)]
+        if coarse:
+            tables, cols, ws = [], [], []
+            for planes, xt in zip(planes_list, xt_list):
+                for si in coarse:
+                    for ci in STATIC:
+                        a, b = COO_COMBS[ci]
+                        H, W = pl.plane_hw(si, ci)
+                        tables.append(Fn.pad(planes[si][ci],
+                                             (0, pl.MULTIHOT_MAX_W - H * W)))
+                        c4, w4 = bilinear_cols_weights(xt[:, a], xt[:, b],
+                                                       H, W)
+                        cols.append(_pad_to(c4, Np))
+                        ws.append(_pad_to(w4, Np))
+            SP = len(tables)
+            feats = multihot_sample(
+                torch.cat(tables, dim=1),
+                torch.stack(cols).reshape(1, SP, 4, Np),
+                torch.stack(ws).reshape(1, SP, 4, Np),
+                pl.MULTIHOT_MAX_W, need_dw=False)
+            feats = feats[0].reshape(B, len(coarse), len(STATIC), F, Np)
+            feats = feats[:, :, 0] * feats[:, :, 1] * feats[:, :, 2]
+            for bi in range(B):
+                for k, si in enumerate(coarse):
+                    per_branch[bi][si] = feats[bi, k, :, :ns[bi]]
+        for si in range(S):
+            if si in coarse:
+                continue
+            for ci in STATIC:
+                a, b = COO_COMBS[ci]
+                H, W = pl.plane_hw(si, ci)
+                tbl = _cat([planes[si][ci] for planes in planes_list],
+                           dim=1)                           # [F, B*H*W]
+                off = 0 if B == 1 else torch.cat(
+                    [torch.full((n,), bi * H * W, dtype=torch.long,
+                                device=tbl.device)
+                     for bi, n in enumerate(ns)])
+                f = bilinear_sample_fmajor(
+                    tbl, H, W, _cat([xt[:, a] for xt in xt_list]),
+                    _cat([xt[:, b] for xt in xt_list]), off)  # [F, sum n]
+                for bi, fb in enumerate(f.split(ns, dim=1)):
+                    cur = per_branch[bi].get(si)
+                    per_branch[bi][si] = fb if cur is None else cur * fb
+        return [torch.cat([d[si] for si in range(S)], dim=0).t()
+                for d in per_branch]
+
+    @staticmethod
+    def apply_dynamic_multi_branches(planes_list, xts_list):
+        """``apply_dynamic_multi`` of several branches (one [Q_i, N_i, 4]
+        query stack each) in one ``multihot_sample`` over all sum(Q_i)
+        queries, each branch's points padded to the longest with zero
+        weights (``nvsf_tpu/models/planes.py:342-413``). Returns one
+        [Q_i, N_i, S*F] array per branch."""
+        pl = planes_list[0]
+        F, S, W_PAD = pl.output_dim, len(pl.multiscale_res), pl.DYN_W_PAD
+        qs = [xts.shape[0] for xts in xts_list]
+        ns = [xts.shape[1] for xts in xts_list]
+        Np = max(ns)
         folded, cols, ws = [], [], []
-        for q in range(Q):
-            t = xts[q, 0, 3]
-            for si in range(S):
-                for ci in DYNAMIC:
-                    a, _b = COO_COMBS[ci]
-                    H, W = self.plane_hw(si, ci)
-                    if W > W_PAD:
-                        raise ValueError(
-                            f"dynamic plane (scale {si}, plane {ci}) width "
-                            f"{W} exceeds DYN_W_PAD={W_PAD}")
-                    y0, y1, wy = _lerp_coords(t, H)
-                    tbl = self[si][ci].reshape(F, H, W)
-                    r0 = tbl.index_select(1, y0.reshape(1))[:, 0]
-                    r1 = tbl.index_select(1, y1.reshape(1))[:, 0]
-                    folded.append(Fn.pad((1.0 - wy) * r0 + wy * r1,
-                                         (0, W_PAD - W)))
-                    x0, x1, wx = _lerp_coords(xts[q, :, a], W)
-                    cols.append(torch.stack([x0, x1]))
-                    ws.append(torch.stack([1.0 - wx, wx]))
-        SP = S * len(DYNAMIC)
+        for planes, xts in zip(planes_list, xts_list):
+            for q in range(xts.shape[0]):
+                t = xts[q, 0, 3]
+                for si in range(S):
+                    for ci in DYNAMIC:
+                        a, _b = COO_COMBS[ci]
+                        H, W = pl.plane_hw(si, ci)
+                        if W > W_PAD:
+                            raise ValueError(
+                                f"dynamic plane (scale {si}, plane {ci}) "
+                                f"width {W} exceeds DYN_W_PAD={W_PAD}")
+                        y0, y1, wy = _lerp_coords(t, H)
+                        tbl = planes[si][ci].reshape(F, H, W)
+                        r0 = tbl.index_select(1, y0.reshape(1))[:, 0]
+                        r1 = tbl.index_select(1, y1.reshape(1))[:, 0]
+                        folded.append(Fn.pad((1.0 - wy) * r0 + wy * r1,
+                                             (0, W_PAD - W)))
+                        x0, x1, wx = _lerp_coords(xts[q, :, a], W)
+                        cols.append(_pad_to(torch.stack([x0, x1]), Np))
+                        ws.append(_pad_to(torch.stack([1.0 - wx, wx]), Np))
+        Qt, SP = sum(qs), S * len(DYNAMIC)
         feats = multihot_sample(
             torch.cat(folded, dim=1),
-            torch.stack(cols).reshape(Q, SP, 2, N).to(torch.int32),
-            torch.stack(ws).reshape(Q, SP, 2, N), W_PAD)
-        feats = feats.reshape(Q, S, len(DYNAMIC), F, N)
+            torch.stack(cols).reshape(Qt, SP, 2, Np).to(torch.int32),
+            torch.stack(ws).reshape(Qt, SP, 2, Np), W_PAD)
+        feats = feats.reshape(Qt, S, len(DYNAMIC), F, Np)
         feats = feats[:, :, 0] * feats[:, :, 1] * feats[:, :, 2]
-        return feats.reshape(Q, S * F, N).transpose(1, 2)
+        feats = feats.reshape(Qt, S * F, Np).transpose(1, 2)
+        return [f[:, :n] for f, n in zip(feats.split(qs), ns)]

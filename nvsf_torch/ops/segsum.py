@@ -3,9 +3,9 @@
 ``segment_add_fm(cols, vals, T)`` is ``zeros(F, T).index_add_(1, cols, vals)``.
 On a CUDA tensor it launches the hand-written kernels of
 ``nvsf_torch/csrc/segsum.cu`` (one thread per update, warp-aggregated vector
-atomics into a row-major [T, F] scratch, then a transpose to [F, T]); on a
-CPU tensor it runs the plain PyTorch version below. Counterpart of
-``nvsf_tpu/ops/segsum.py::segment_add_fm``.
+atomics into a row-major [T, F] scratch, then a transpose to [F, T]; at
+F = 1 straight into the table); on a CPU tensor it runs the plain PyTorch
+version below. Counterpart of ``nvsf_tpu/ops/segsum.py::segment_add_fm``.
 
 precision: ``"bf16"`` rounds every update to bf16 before the f32 sum, as the
 TPU kernel's packed payload does; ``"f32"`` sums the values as given.
@@ -54,8 +54,12 @@ def segment_add_cuda(cols: torch.Tensor, vals: torch.Tensor, T: int,
         raise ValueError(f"kernel takes F <= {MAX_F} features, got {F}")
     if M > 1 and vals.stride(1) != 1:
         vals = vals.contiguous()
-    rows = torch.zeros((T, F), dtype=torch.float32, device=vals.device)
-    out = torch.empty((F, T), dtype=torch.float32, device=vals.device)
+    if F == 1:   # [T, 1] rows are the [1, T] table: summed in place
+        out = rows = torch.zeros((1, T), dtype=torch.float32,
+                                 device=vals.device)
+    else:
+        rows = torch.zeros((T, F), dtype=torch.float32, device=vals.device)
+        out = torch.empty((F, T), dtype=torch.float32, device=vals.device)
     lib = kernels.library()
     rc = lib.nvsf_segment_add(cols.data_ptr(), vals.data_ptr(),
                               vals.stride(0), rows.data_ptr(), out.data_ptr(),

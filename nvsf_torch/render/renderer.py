@@ -2,7 +2,9 @@
 ``near_far_from_aabb``, the dense uniform ``run`` with its chunked and
 recomputed density query (``remat_chunks``) and its optional importance
 resampling (``sample_pdf``), ``stratified_segment_jitter`` and
-``run_occupancy`` for occupancy-mode training, and ``render``, the JAX
+``run_occupancy`` for occupancy-mode training, ``run_joint``, which
+renders a LiDAR and a camera batch with each encoder family run once for
+both (``joint_fusion``), and ``render``, the JAX
 package's ``render(staged=True)``: chunks of dense ``run`` without an
 occupancy grid, the streaming marcher ``run_occupancy_stream`` /
 ``_render_staged_occ`` with one.
@@ -314,6 +316,75 @@ class Renderer:
         return self._composite(rays_d, xyzs, z_vals, deltas, dout,
                                cal_lidar_color=cal_lidar_color,
                                bg_color=bg_color, valid=valid)
+
+    def run_joint(self, ro_l, rd_l, ro_c, rd_c, time, *, perturb=False,
+                  generator=None, draws_l: Optional[dict] = None,
+                  draws_c: Optional[dict] = None, bg_color=None,
+                  occ: Optional[OccupancyGrid] = None, occ_grid_l=None,
+                  occ_grid_c=None, num_steps_occ: Optional[int] = None,
+                  occ_thresh: float = 0.01, x_flow_extra=None):
+        """A LiDAR and a camera ray batch rendered in one pass, each encoder
+        family run once for both (``NVSFField.density_joint``;
+        ``nvsf_tpu/render/renderer.py:382-500``). Per branch the samples
+        and the quadrature are those of ``run``, or of ``run_occupancy``
+        when ``occ`` and the grids are given (one K for both branches).
+        With ``perturb``, ``draws_l`` / ``draws_c`` hold each branch's
+        ``z_noise`` [N, T] and ``jitter_u`` [N, K] in place of draws from
+        ``generator``.
+
+        Returns (lidar_out, camera_out, extra): ``extra["flow_extra"]``
+        carries the flow at ``x_flow_extra`` when given."""
+        T = self.num_steps
+        dev = ro_l.device
+        aabb = self.aabb(dev)
+        use_occ = occ is not None and occ_grid_l is not None
+        K = num_steps_occ if use_occ else T
+        branches = []
+        for ro, rd, lidar, grid, dr in ((ro_l, rd_l, True, occ_grid_l,
+                                         draws_l), (ro_c, rd_c, False,
+                                                    occ_grid_c, draws_c)):
+            N, dr = ro.shape[0], dr or {}
+            nears, fars = self._near_far(ro, rd, lidar)
+            z = nears + (fars - nears) * linspace01(T, dev)[None, :]
+            sample_dist = (fars - nears) / T
+            if perturb:
+                u = dr.get("z_noise")
+                if u is None:
+                    u = torch.rand((N, T), generator=generator, device=dev)
+                z = z + (u - 0.5) * sample_dist
+            valid = None
+            if use_occ:
+                z, valid = occ.compact_samples(grid, ro, rd, z, K,
+                                               occ_thresh)
+                if perturb and self.occ_jitter:
+                    u = dr.get("jitter_u")
+                    if u is None:
+                        u = torch.rand((N, K), generator=generator,
+                                       device=dev)
+                    z = stratified_segment_jitter(z, sample_dist, T, K, u)
+            xyz = ro[:, None, :] + rd[:, None, :] * z[..., None]
+            xyz = torch.minimum(torch.maximum(xyz, aabb[:3]), aabb[3:])
+            branches.append((rd, xyz, z, sample_dist, valid, lidar))
+        dout = self.field.density_joint(
+            branches[0][1].reshape(-1, 3), branches[1][1].reshape(-1, 3),
+            time, compute_dtype=self.compute_dtype,
+            x_flow_extra=x_flow_extra)
+        outs = []
+        for (rd, xyz, z, sample_dist, valid, lidar), sfx in zip(
+                branches, ("_l", "_c")):
+            deltas = torch.cat([z[..., 1:] - z[..., :-1],
+                                sample_dist.expand(z.shape[0], 1)], dim=-1)
+            if use_occ:
+                deltas = torch.minimum(deltas.clamp_min(0.0),
+                                       self._occ_delta_cap(sample_dist, T,
+                                                           K))
+            outs.append(self._composite(
+                rd, xyz, z, deltas, {"sigma": dout["sigma" + sfx],
+                                     "geo_feat": dout["geo_feat" + sfx]},
+                cal_lidar_color=lidar, bg_color=bg_color, valid=valid))
+        extra = {"flow_extra": dout["flow_extra"]} \
+            if "flow_extra" in dout else {}
+        return outs[0], outs[1], extra
 
     # ------------------------------------------------------------------
     # eval: the streaming early-exit marcher (no gradient)

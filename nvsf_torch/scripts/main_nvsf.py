@@ -107,7 +107,8 @@ def _test(cfg, device):
 
 def _train(cfg, device):
     """Training with an eval and checkpoints every eval_interval epochs
-    (best by combined CD), then the U-Net refine and the refined eval."""
+    (best by combined CD), then the U-Net refine and the refined eval
+    (none with ``refine_steps`` 0)."""
     from nvsf_torch.train.evaluate import evaluate
     from nvsf_torch.train.logging import (Logger, TensorboardWriter,
                                           model_summary,
@@ -164,8 +165,10 @@ def _train(cfg, device):
 
     run_epochs_with_recovery(trainer, trainer.epoch + 1, cfg_run.epochs,
                              on_epoch, log_fn=log)
-    # the refine stage and the refined eval (``trainer.py:1092-1096``)
-    if cfg_run.enable_lidar:
+    # the refine stage and the refined eval (``trainer.py:1092-1096``);
+    # refine_steps 0 skips both (the JAX CLI renders every training frame
+    # and trains the U-Net for no step)
+    if cfg_run.enable_lidar and cfg_run.refine_steps > 0:
         trainer.refine(steps=cfg_run.refine_steps, log_fn=log)
         with timers.phase("refined eval"):
             evaluate(trainer, val_scene, use_refine=True,

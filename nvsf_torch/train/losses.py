@@ -1,6 +1,7 @@
-"""Loss terms of the training step (counterpart of the functions of
-``nvsf_tpu/train/losses.py`` that the joint step calls). Elementwise
-criteria keep reduction='none' semantics."""
+"""Loss terms (counterpart of ``nvsf_tpu/train/losses.py``): those of the
+training step, and the library's ``mape_loss`` and
+``eff_distortion_loss``. Elementwise criteria keep reduction='none'
+semantics."""
 
 from __future__ import annotations
 
@@ -184,6 +185,28 @@ def structural_regularizers(pred_depth_patches, gt_depth_patches,
                 + criterion_grad(gy * mask_dy, ggy * mask_dy)
         loss = loss + cfg_flags["alpha_grad"] * gl.sum()
     return loss
+
+
+def mape_loss(pred, gt, eps=1e-2):
+    """Mean-absolute-percentage style loss, elementwise (in the
+    reference's loss library, ``nvsf/nerf/loss.py``; its trainer does not
+    call it)."""
+    return (pred - gt).abs() / (gt.abs() + eps)
+
+
+def eff_distortion_loss(weights, z_vals):
+    """The O(T) mip-NeRF-360 distortion loss of the reference's
+    ``EffDistLoss`` (``nvsf/nerf/loss.py:29-87``; unused by its trainer):
+    sum_ij w_i w_j |m_i - m_j| + 1/3 sum_i w_i^2 d_i through prefix sums.
+    weights, z_vals (interval midpoints): [N, T] -> [N]."""
+    m, w = z_vals, weights
+    wm = w * m
+    cw = torch.cumsum(w, dim=-1) - w
+    cwm = torch.cumsum(wm, dim=-1) - wm
+    cross = 2.0 * (wm * cw - w * cwm).sum(dim=-1)
+    d = torch.cat([m[..., 1:] - m[..., :-1], torch.zeros_like(m[..., :1])],
+                  dim=-1)
+    return cross + (w * w * d).sum(dim=-1) / 3.0
 
 
 def scrub_loss(loss):

@@ -2,7 +2,10 @@
 (novel-sensor synthesis), and write the pano and image PNGs and the LiDAR-
 and world-frame point clouds (counterpart of
 ``nvsf_tpu/train/test_mode.py``, which rebuilds
-``nvsf/nerf/trainer.py:1109-1283``). Video export is not ported."""
+``nvsf/nerf/trainer.py:1109-1283``), and with ``write_video`` the depth
+and RGB frames as animated GIFs. The JAX package writes mp4 where an
+ffmpeg backend exists and GIF otherwise; the port always writes GIF, with
+its standard-library writer (``lib/tools.py::write_gif``)."""
 
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import os
 import numpy as np
 
 from nvsf_torch.lib import convert
-from nvsf_torch.lib.tools import write_pcd, write_png
+from nvsf_torch.lib.tools import write_gif, write_pcd, write_png
 
 
 def _to_u8(a, vmax=None):
@@ -21,12 +24,14 @@ def _to_u8(a, vmax=None):
 
 
 def run_test(trainer, scene, *, save_dir, name="test", use_refine=False,
-             log_fn=print):
+             write_video=False, log_fn=print):
     """Render each frame of ``scene`` from the EMA field on the trainer's
-    device and write ``{name}_{frame:04d}_*`` artifacts into
-    ``save_dir``."""
+    device and write ``{name}_{frame:04d}_*`` artifacts into ``save_dir``;
+    with ``write_video`` also ``{name}_depth.gif`` and ``{name}_rgb.gif``
+    (10 frames a second, looping; ``nvsf_tpu/train/test_mode.py:20-46``)."""
     cfg = trainer.cfg
     os.makedirs(save_dir, exist_ok=True)
+    frames = {"depth": [], "rgb": []}
     for fi in range(len(scene)):
         t = float(scene.times[fi])
         stem = os.path.join(save_dir, f"{name}_{fi:04d}")
@@ -44,7 +49,8 @@ def run_test(trainer, scene, *, save_dir, name="test", use_refine=False,
             mask = (raydrop > cfg.raydrop_thres).astype(np.float32)
             depth = pred["depth"] * mask
             inten = pred["intensity"] * mask
-            write_png(f"{stem}_depth.png", _to_u8(depth))
+            frames["depth"].append(_to_u8(depth))
+            write_png(f"{stem}_depth.png", frames["depth"][-1])
             write_png(f"{stem}_intensity.png", _to_u8(inten, vmax=1.0))
             pts = convert.pano_to_lidar_with_intensities(
                 depth / cfg.scale, inten, scene.intrinsics_lidar,
@@ -60,6 +66,14 @@ def run_test(trainer, scene, *, save_dir, name="test", use_refine=False,
         if cfg.enable_rgb and scene.poses is not None:
             out = trainer.render_view(scene.poses[fi], t, scene.H, scene.W,
                                       scene.intrinsics, use_ema=True)
-            write_png(f"{stem}_rgb.png", _to_u8(out["rgb"], vmax=1.0))
+            frames["rgb"].append(_to_u8(out["rgb"], vmax=1.0))
+            write_png(f"{stem}_rgb.png", frames["rgb"][-1])
+    if write_video:
+        for kind, fr in frames.items():
+            if fr:
+                path = os.path.join(save_dir, f"{name}_{kind}.gif")
+                write_gif(path, fr)
+                if log_fn:
+                    log_fn(f"[test] wrote {path}")
     if log_fn:
         log_fn(f"[test] wrote {len(scene)} frames to {save_dir}")

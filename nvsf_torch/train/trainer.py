@@ -9,7 +9,8 @@ uniform one (any other mode, the default ``"uniform"``), sums the losses
 (LiDAR depth / intensity / ray-drop, chamfer, scene flow, URF line of
 sight, the patch structural regularizers on patch epochs, camera RGB),
 runs Adam and updates the error maps. Semantics follow the JAX step
-(``nvsf_tpu/train/trainer.py:383-611``, separate-branch path):
+(``nvsf_tpu/train/trainer.py:383-611``); with ``joint_fusion`` the two
+branches render in one ``Renderer.run_joint`` pass, as there:
 
   - Adam(0.9, 0.99, eps 1e-15) after zeroing NaN gradients, flow /
     intensity / ray-drop at 0.1x the learning rate, decay
@@ -122,10 +123,6 @@ class EpochStats:
     parts: Dict[str, float]
 
 
-_UNPORTED = {
-    "joint_fusion": "the fused joint-render path",
-}
-
 _SR_FLAGS = ("grad_norm_smooth", "spatial_smooth", "tv_loss", "grad_loss")
 
 
@@ -148,10 +145,24 @@ class Trainer:
 
     def __init__(self, cfg: NVSFConfig, scene: SceneData, seed: int = 0,
                  device=None):
-        for flag, what in _UNPORTED.items():
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag}=True needs {what}, not ported to nvsf_torch")
+        self.joint = cfg.enable_lidar and cfg.enable_rgb and cfg.joint_fusion
+        if self.joint:
+            # the fused path evaluates both branches in one density batch:
+            # per-branch sample budgets and the chunked remat query do not
+            # exist there (the JAX package's guards and messages)
+            if cfg.num_steps_occ_rgb and \
+                    cfg.num_steps_occ_rgb != cfg.num_steps_occ:
+                raise ValueError(
+                    "joint_fusion=True fuses both branches into one density "
+                    f"batch and cannot honor num_steps_occ_rgb="
+                    f"{cfg.num_steps_occ_rgb} != num_steps_occ="
+                    f"{cfg.num_steps_occ}; unset num_steps_occ_rgb or "
+                    "disable joint_fusion")
+            if cfg.remat_chunks > 1:
+                raise ValueError(
+                    "joint_fusion=True bypasses the remat_chunks chunked "
+                    "density query (run_joint evaluates the full joint "
+                    "batch); set remat_chunks=1 or disable joint_fusion")
         self.cfg = cfg
         self.scene = scene
         self.workspace = cfg.workspace
@@ -387,12 +398,24 @@ class Trainer:
                 generator=gen, z_noise=dr.get("z_noise"),
                 jitter_u=dr.get("jitter_u"), occ_thresh=cfg.occ_thresh, **kw)
 
-        if cfg.enable_lidar:
-            out = render("lidar", ro, rd, True, cfg.num_steps_occ)
-        if cfg.enable_rgb:
-            out_c = render("rgb", ro_c, rd_c, False,
-                           cfg.num_steps_occ_rgb or cfg.num_steps_occ,
-                           bg_color=bg)
+        fl = None
+        if self.joint:
+            # the flow loss's cloud rides in the joint flow batch
+            out, out_c, extra = rend.run_joint(
+                ro, rd, ro_c, rd_c, t, perturb=True, generator=gen,
+                draws_l=draws.get("lidar_render"),
+                draws_c=draws.get("rgb_render"), bg_color=bg, occ=self.occ,
+                occ_grid_l=self.occ_grid_lidar, occ_grid_c=self.occ_grid_rgb,
+                num_steps_occ=cfg.num_steps_occ, occ_thresh=cfg.occ_thresh,
+                x_flow_extra=pc)
+            fl = extra.get("flow_extra")
+        else:
+            if cfg.enable_lidar:
+                out = render("lidar", ro, rd, True, cfg.num_steps_occ)
+            if cfg.enable_rgb:
+                out_c = render("rgb", ro_c, rd_c, False,
+                               cfg.num_steps_occ_rgb or cfg.num_steps_occ,
+                               bg_color=bg)
 
         if cfg.enable_lidar:
             gt_raydrop = gt[:, 0]
@@ -413,7 +436,8 @@ class Trainer:
             parts["chamfer"] = cd
             total = total + cd
             if pc is not None:
-                fl = self.field.flow_at(pc, t)
+                if fl is None:
+                    fl = self.field.flow_at(pc, t)
                 pcd = self.pc_data
                 nxt = torch.clamp(gfi + 1, max=cfg.num_frames - 1)
                 prv = torch.clamp(gfi - 1, min=0)

@@ -104,9 +104,10 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax():
-    """Every module of nvsf_torch, and chip_smoke, imports with jax and
-    optax made unimportable, and none of them names a module of nvsf_tpu
-    (the port keeps its own copies of what it needs)."""
+    """Every module of nvsf_torch, and chip_smoke, imports with jax, optax,
+    cv2 and imageio made unimportable (the card's machine has none of
+    them), and none of them names a module of nvsf_tpu (the port keeps
+    its own copies of what it needs)."""
     allowed = ()
     files = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(d, f)
@@ -117,7 +118,7 @@ def test_port_imports_no_jax():
     assert not named, named
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'optax'):\n"
+        "for m in ('jax', 'jaxlib', 'optax', 'cv2', 'imageio'):\n"
         "    sys.modules[m] = None\n"
         "import nvsf_torch\n"
         "for info in pkgutil.walk_packages(nvsf_torch.__path__, "
@@ -129,9 +130,11 @@ def test_port_imports_no_jax():
         "import nvsf_torch.train.refine, nvsf_torch.train.checkpoint\n"
         "import nvsf_torch.train.test_mode, nvsf_torch.render.export\n"
         "import nvsf_torch.data.kitti360, nvsf_torch.lib.lpips\n"
+        "import nvsf_torch.preprocess.kitti360, nvsf_torch.native.binding\n"
+        "import nvsf_torch.scripts.preprocess_data, nvsf_torch.lib.image\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'nvsf_tpu') and sys.modules[m] is not "
-        "None]\n"
+        "('jax', 'jaxlib', 'optax', 'cv2', 'imageio', 'nvsf_tpu') and "
+        "sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

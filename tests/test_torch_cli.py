@@ -53,7 +53,7 @@ TOY = ["--render_mode", "occupancy", "--num_steps_occ", "16",
 def kitti_config(mini_kitti, tmp_path_factory):  # noqa: F811
     base, src, _ = mini_kitti
     ws = tmp_path_factory.mktemp("kitti_cli")
-    from nvsf_tpu.preprocess import kitti360 as K
+    from nvsf_torch.preprocess import kitti360 as K
     path = K.preprocess_kitti360(
         src, base, "1908", recording="2013_05_28_drive_0000",
         config_dir=str(ws / "configs"), workspace=str(ws / "run"),

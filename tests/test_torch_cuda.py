@@ -64,13 +64,14 @@ def _keys(rng, pattern, shape, T):
     return np.stack(rows).reshape(shape).astype(np.int32)
 
 
-@pytest.mark.parametrize("F", [2, 3, 8])
+@pytest.mark.parametrize("F", [1, 2, 3, 8])
 @pytest.mark.parametrize("keys", KEY_PATTERNS)
 @pytest.mark.parametrize("precision", ["bf16", "f32"])
 def test_segment_add_kernel(dev, precision, keys, F):
     """B1/B2 against the plain version: M a multiple of neither a warp nor
     a block, vals a column slice of a wider tensor (row stride > M), F on
-    the float2 (2), scalar (3) and float4 (8) paths of the kernel."""
+    the in-place (1), float2 (2), scalar (3) and float4 (8) paths of the
+    kernel."""
     rng = np.random.default_rng(0)
     T, M = 50_000, 400_003
     cols = torch.from_numpy(_keys(rng, keys, (M,), T)).to(dev)
