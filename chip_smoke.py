@@ -34,7 +34,7 @@ Phases, one line each:
                  on the CPU and compared; B5 against its plain version on
                  that render and its ground truth; one frame rendered from
                  the EMA parameters, evaluate's default.
-  6. learning -- the small convergence drive of the verify notes (12
+  6. learning -- the small convergence drive of the verify notes (8
                  epochs, 4 frames) must cut the loss below 0.7x.
   7. cli      -- configs/kitti360_1908.txt through the port's CLI
                  (nvsf_torch.scripts.main_nvsf.main) on the synthetic
@@ -63,8 +63,8 @@ Phases, one line each:
                  Velodyne sweeps, camera PNGs at 1/4 size, a 3D box XML)
                  through `python -m nvsf_torch.scripts.preprocess_data`
                  (stage times; native range views held to numpy's), then
-                 the CLI on the config it wrote at the shipped widths: 2
-                 epochs and the eval of the val frames (finite CD, F,
+                 the CLI on the config it wrote at the shipped widths: 1
+                 epoch and the eval of the val frames (finite CD, F,
                  PSNR), the image-load time and the path's launches.
  10. joint    -- the joint_fusion step (bench.py's joint-8x4 rung) against
                  the separate step on one trainer: equal losses in bf16,
@@ -72,6 +72,21 @@ Phases, one line each:
                  each step's time, device time, kernels, busy share and
                  peak memory, in turns. Phase 3's "joint" rows hold B1, B3
                  and B4 on one fused step's inputs.
+ 11. parallel -- ray-sharded data parallelism (nvsf_torch.parallel.mesh):
+                 (a) two ranks on the one card over gloo, spawned from here,
+                 at phase 4's width: one f32 step's gradients (the mean over
+                 the ranks, before Adam) against one process's (1e-5 of
+                 each gradient's max), 8 bf16 steps (a random and a patch
+                 epoch, two grid refreshes) after which every replicated
+                 tensor is bit for bit equal on both ranks, the val frame
+                 rendered sharded through evaluate() (B5 behind its
+                 PointsMeter) against rank 0's render of it alone, the
+                 collectives a step and the step time; (b) phase 7's argv
+                 through the CLI with --mesh_shape 1 (one rank over NCCL),
+                 2 epochs, raydrop threshold 0, the val evals and 20
+                 refine steps: each checkpoint written once, finite
+                 error matrices; the
+                 "parallel" launches are both runs' ranks'.
 
 Any failure raises and the script exits non-zero. The line before the
 last is a JSON record of the kernels (B1 and B2, one kernel with a
@@ -81,6 +96,7 @@ precision flag, as two entries); the last is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -131,6 +147,28 @@ def bound(nbytes: float, flops: float):
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+@contextlib.contextmanager
+def watch_lidar_sweep():
+    """Inside the block, record the frames ``evaluate`` renders through
+    its LiDAR sweep ("out") and the sweep's synchronised wall time
+    ("seconds"; the sweep ends in a host copy)."""
+    import nvsf_torch.train.evaluate as ev
+    orig, seen = ev.render_lidar_sweep, {}
+
+    def sweep(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen["out"] = orig(*args, **kwargs)
+        seen["seconds"] = time.perf_counter() - t0
+        return seen["out"]
+
+    ev.render_lidar_sweep = sweep
+    try:
+        yield seen
+    finally:
+        ev.render_lidar_sweep = orig
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -906,16 +944,17 @@ def phase_slice(smi):
     assert not missing, f"kernels not launched by the step: {missing}"
 
     rays = cfg.num_rays_lidar + cfg.num_rays
+    step_ms = {}
     for patch in (False, True):
         kind = "patch" if patch else "random"
         runs = []
         for rnd in (1, 2):      # back to back: the spread within one call
-            ms, host_ms = _time_steps(tr, patch)
+            ms, host_ms = _time_steps(tr, patch, n=6, warmup=1)
             runs.append(ms)
             log("slice", f"steady-state {kind} step, round {rnd}: {ms:.1f} "
                          f"ms = {rays / ms * 1e3:.0f} rays/s; host returns "
                          f"after {host_ms:.1f} ms ({smi})")
-        ms = float(np.median(runs))
+        ms = step_ms[kind] = float(np.median(runs))
         fams, per_step = profile_device(
             lambda i: tr.train_step(i % len(tr.scene), patch))
         busy = sum(fams.values())
@@ -929,7 +968,7 @@ def phase_slice(smi):
                  f"card on the CPU's ReLU gates: flow output {flow_err:.2e} "
                  f"of its max (tol 1e-4), density rel err {err:.2e}, worst "
                  f"gradient {worst} {gerr:.2e} of its max (tol 1e-3)")
-    return tr, launches
+    return tr, launches, step_ms["random"]
 
 
 # ----------------------------------------------------------------------
@@ -1176,7 +1215,7 @@ def phase_eval(tr, smi):
     # evaluate rendered a frame of this size just before: no warm-up
     rays = tr.scene.H_lidar * tr.scene.W_lidar
     times, checks0 = [], tr.renderer.slab_checks
-    for _ in range(2):
+    for _ in range(1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = tr.render_lidar_frame(0)             # ends in a host copy
@@ -1184,10 +1223,10 @@ def phase_eval(tr, smi):
     best = min(times)
     every = ", ".join(f"{t * 1e3:.1f}" for t in times)
     log("eval", f"LiDAR frame render (occupancy stream, K' 96 of 768, "
-                f"chunks of 2048): best of 2 {best * 1e3:.1f} ms = "
-                f"{rays / best:.0f} rays/s (all: {every} ms); "
-                f"{(tr.renderer.slab_checks - checks0) / 2:.0f} slab checks "
-                f"per frame ({smi})")
+                f"chunks of 2048): best of {len(times)} {best * 1e3:.1f} ms "
+                f"= {rays / best:.0f} rays/s (all: {every} ms); "
+                f"{(tr.renderer.slab_checks - checks0) / len(times):.0f} "
+                f"slab checks per frame ({smi})")
     fams, n_kernels, wall, n_rays = profile_render(tr)
     busy = sum(fams.values())
     log("profile", f"render of every 8th ray of the frame ({n_rays} rays): "
@@ -1215,7 +1254,7 @@ def phase_eval(tr, smi):
 # ----------------------------------------------------------------------
 
 def phase_learning(render_mode="occupancy", tag="learning"):
-    """The drive in ``render_mode``: 12 epochs of 3 steps, 64 samples a ray
+    """The drive in ``render_mode``: 8 epochs of 3 steps, 64 samples a ray
     (occupancy mode keeps 32 of them)."""
     from nvsf_torch.data.synthetic import (SyntheticSceneSpec,
                                            make_synthetic_scene)
@@ -1232,7 +1271,7 @@ def phase_learning(render_mode="occupancy", tag="learning"):
         iters=100, epochs=12, use_error_map=True))
     tr = Trainer(cfg, make_synthetic_scene(spec, split="train"),
                  device="cuda")
-    losses = [tr.train_one_epoch().loss for _ in range(12)]
+    losses = [tr.train_one_epoch().loss for _ in range(8)]
     log(tag, f"{render_mode} mode, epoch losses "
              + " ".join(f"{v:.3f}" for v in losses))
     assert all(np.isfinite(losses)), losses
@@ -1408,7 +1447,9 @@ def phase_cli(smi):
     err, shape = check_unet_against_cpu(tr)
     log("cli", f"U-Net eval forward on {shape}, card vs CPU: max abs "
                f"{err:.3e} (tol {UNET_TOL})")
-    return launches
+    # ms a step of the last epoch (12, a patch epoch), for phase 11
+    return launches, (tr.timers.last["train epoch"] * 1e3
+                      / (tr.global_step / tr.epoch))
 
 
 # ----------------------------------------------------------------------
@@ -1562,8 +1603,10 @@ def phase_uniform(smi, trained, stream):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    res = evaluate(tr, val, use_ema=False, save_dir=str(UNIFORM_DIR),
-                   write_outputs=False, log_fn=lambda m: print(m, flush=True))
+    with watch_lidar_sweep() as frame_render:
+        res = evaluate(tr, val, use_ema=False, save_dir=str(UNIFORM_DIR),
+                       write_outputs=False,
+                       log_fn=lambda m: print(m, flush=True))
     torch.cuda.synchronize()
     log("uniform", f"evaluate of phase 5's field, dense renders: "
                    f"{time.perf_counter() - t0:.2f} s; peak memory "
@@ -1580,14 +1623,11 @@ def phase_uniform(smi, trained, stream):
             + f" (phase 5's streaming eval of this field: CD "
               f"{s['point'][0]:.4f}, F-score {s['point'][1]:.4f}, depth "
               f"RMSE {s['depth'][0]:.4f}, PSNR {s['rgb_psnr']:.4f})")
-    # evaluate rendered this frame size just before: one timed render
-    frame = tr.scene.H_lidar * tr.scene.W_lidar
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tr.render_lidar_frame(0)                        # ends in a host copy
-    secs = time.perf_counter() - t0
+    # the val frame's LiDAR render, timed inside evaluate
+    frame = val.H_lidar * val.W_lidar
+    secs = frame_render["seconds"]
     chunks = -(-frame // cfg.max_ray_batch)
-    log("uniform", f"LiDAR frame render (dense, {frame} rays x "
+    log("uniform", f"LiDAR frame render in evaluate (dense, {frame} rays x "
                    f"{cfg.num_steps} samples in {chunks} chunks of "
                    f"{cfg.max_ray_batch}): {secs * 1e3:.1f} ms = "
                    f"{frame / secs:.0f} rays/s; the streaming marcher of "
@@ -1783,7 +1823,7 @@ def phase_kitti(smi):
     through ``python -m nvsf_torch.scripts.preprocess_data``; the native
     range views held to numpy's on 4 frames; then the CLI on the config
     it wrote at the widths of configs/kitti360_1908.txt (occupancy, K 96 /
-    128, 4 x 8 hash, 4 x 32 flow hash, bf16, enable_rgb): 2 epochs of 60
+    128, 4 x 8 hash, 4 x 32 flow hash, bf16, enable_rgb): 1 epoch of 60
     steps, the EMA following the parameters, no U-Net refine (it renders
     all 60 training frames), then the eval of the 4 val frames. Returns
     the path's launches."""
@@ -1831,9 +1871,9 @@ def phase_kitti(smi):
         "--flow_n_levels", "4", "--flow_n_features_per_level", "32",
         "--num_steps_occ", "96", "--num_steps_occ_rgb", "128",
         "--num_steps_occ_render", "96",
-        # a short run: 2 epochs of 60 steps, the EMA following the
+        # a short run: 1 epoch of 60 steps, the EMA following the
         # parameters, the eval once at the end, no refine
-        "--epochs", "2", "--eval_interval", "2", "--ema_decay", "0",
+        "--epochs", "1", "--eval_interval", "1", "--ema_decay", "0",
         "--refine_steps", "0", "--workspace", str(KITTI_DIR / "ws")]
     cfg = load_config(argv).finalize(steps_per_epoch=60)
     assert cfg.enable_rgb and cfg.fp16 and cfg.flow_loss, cfg
@@ -1863,15 +1903,15 @@ def phase_kitti(smi):
     logs = (ws / f"log_{tr.name}.txt").read_text()
     assert "[recovery]" not in logs, "the training run restarted an epoch"
     epochs = _epoch_parts(logs)
-    assert sorted(epochs) == [2], f"epochs {sorted(epochs)}"
-    bad = [k for k, v in epochs[2].items() if not np.isfinite(v)]
+    assert sorted(epochs) == [1], f"epochs {sorted(epochs)}"
+    bad = [k for k, v in epochs[1].items() if not np.isfinite(v)]
     assert not bad, f"non-finite losses {bad}"
     for stage, secs in tr.timers.totals.items():
         log("kitti", f"stage {stage:16s} {secs:9.3f} s "
                      f"({tr.timers.counts[stage]}x)")
     scores = {}
     for cat in ("combined", "static", "dynamic"):
-        path = ws / "validation" / f"{tr.name}_ep0002_error_matrix_{cat}.json"
+        path = ws / "validation" / f"{tr.name}_ep0001_error_matrix_{cat}.json"
         if path.exists():
             m = json.loads(path.read_text())
             scores[cat] = {"CD": m["point"][0], "F-score": m["point"][1],
@@ -1884,7 +1924,7 @@ def phase_kitti(smi):
     assert not missing, f"kernels not launched by the KITTI path: {missing}"
     log("kitti", f"CLI run {t_run:.1f} s ({tr.global_step} steps, then "
                  f"the eval of the 4 val frames at 66x1030 and 94x352); "
-                 f"val eval {scores}; epoch 2 parts {epochs[2]}; launches "
+                 f"val eval {scores}; epoch 1 parts {epochs[1]}; launches "
                  f"{launches} ({smi})")
     return launches
 
@@ -1963,7 +2003,7 @@ def phase_joint(smi):
     one trainer (``Trainer.joint`` switched between them): one fused epoch
     (the "joint" launches), the two paths' equivalence in bf16 (at
     JOINT_BF16_SEEDS states and draws) and in f32, then each step timed in
-    turns (separate, fused, fused, separate; median of 5 after 2 warm-up
+    turns (separate, fused, fused, separate; median of 4 after 1 warm-up
     steps each), profiled, and its peak memory.
     Returns the launches and the trainer."""
     from nvsf_torch.train.trainer import Trainer
@@ -2008,7 +2048,7 @@ def phase_joint(smi):
     for joint in (False, True, True, False):
         tr.joint = joint
         torch.cuda.reset_peak_memory_stats()
-        ms, host_ms = _time_steps(tr, False, n=5, warmup=2)
+        ms, host_ms = _time_steps(tr, False, n=4, warmup=1)
         times[joint].append(ms)
         mem[joint] = max(mem.get(joint, 0.0),
                          torch.cuda.max_memory_allocated() / 2**30)
@@ -2032,6 +2072,270 @@ def phase_joint(smi):
     return launches, tr
 
 
+# ----------------------------------------------------------------------
+# phase 11: ray-sharded data parallelism
+# ----------------------------------------------------------------------
+
+PARALLEL_DIR = REPO / "build" / "chip_smoke_parallel"
+# the two epochs of phase 11's 8 bf16 steps: epoch 1 random, epoch 2 patch
+PARALLEL_EPOCHS = ((1, [0, 1, 2, 3]), (2, [4, 5, 6, 7]))
+# the sharded val frame against the same frame rendered by one process:
+# each rank's marcher sorts and chunks its own rays, and a ray's output
+# then differs by what its chunk adds after the ray's transmittance fell
+# below 1e-4, so by at most 1e-4 of the largest value (plus f32 rounding)
+SHARDED_RENDER_RTOL = 1e-4
+
+
+def parallel_config(spec):
+    """Phase 4's joint-tuned rung with a grid refresh every 4 steps, so
+    that phase 11's 8 steps span two, and its eval keeping every ray
+    (``raydrop_thres`` 0): after 8 steps the raydrop head drops all of the
+    val frame, which would leave the point meter (B5) nothing to score."""
+    return dataclasses.replace(joint_tuned_config(spec),
+                               occ_update_interval=4, raydrop_thres=0.0)
+
+
+def _f32_grads(tr, fi=3):
+    """One f32 step's loss and gradients (the table gradients through B2),
+    left before Adam; under a mesh, the mean over its ranks."""
+    rend, field = tr.renderer, tr.field
+    saved = (rend.compute_dtype, field.table_grad_precision)
+    rend.compute_dtype, field.table_grad_precision = torch.float32, "f32"
+    try:
+        field.zero_grad(set_to_none=True)
+        loss, _, _ = tr.loss_and_grads(fi, False)
+        grads = {k: torch.zeros_like(p) if p.grad is None
+                 else p.grad.detach().clone()
+                 for k, p in field.named_parameters()}
+        field.zero_grad(set_to_none=True)
+    finally:
+        rend.compute_dtype, field.table_grad_precision = saved
+    return float(loss), grads
+
+
+def _parallel_epochs(tr):
+    """Phase 11's 8 bf16 steps (two epochs: their EMA updates and two grid
+    refreshes) -> (the epochs' losses, ms a step of each epoch)."""
+    losses, ms = [], []
+    for ep, order in PARALLEL_EPOCHS:
+        tr.epoch = ep
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = tr.train_one_epoch(order=order)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / len(order))
+        losses.append(st.loss)
+    return losses, ms
+
+
+def _parallel_reference(path):
+    """The single process on phase 11's config and seed: the f32 step's
+    loss and gradients (saved to ``path`` for rank 0 to compare); returns
+    the 8 bf16 steps' losses."""
+    from nvsf_torch.train.trainer import Trainer
+    spec, scene = slice_scene()
+    tr = Trainer(parallel_config(spec), scene, seed=0, device="cuda")
+    loss, grads = _f32_grads(tr)
+    torch.save({"loss": loss, "grads": {k: g.cpu() for k, g in
+                                        grads.items()}}, path)
+    del grads
+    return _parallel_epochs(tr)[0]
+
+
+def parallel_rank(mesh, ref_path):
+    """One rank of phase 11 (a): the f32 step against the single process
+    (rank 0 compares), the 8 bf16 steps and the sharded eval of the val
+    frame (the path whose launches count), the replicated state checked
+    bit for bit, timed steps, and on rank 0 the val frame rendered by this
+    process alone against the sharded render."""
+    from nvsf_torch.data.synthetic import make_synthetic_scene
+    from nvsf_torch.parallel.mesh import replicas_differ
+    from nvsf_torch.render.sweep import render_lidar_sweep
+    from nvsf_torch.train.evaluate import evaluate
+    from nvsf_torch.train.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank}
+    spec, scene = slice_scene()
+    t0 = time.perf_counter()
+    tr = Trainer(parallel_config(spec), scene, seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    loss, grads = _f32_grads(tr)
+    if mesh.is_main:
+        ref = torch.load(ref_path, map_location=mesh.device)
+        rel = {k: float((g - ref["grads"][k]).abs().max())
+               / max(float(ref["grads"][k].abs().max()), 1e-30)
+               for k, g in grads.items()}
+        worst = max(rel, key=rel.get)
+        out["f32"] = dict(loss=loss, ref_loss=ref["loss"], worst=worst,
+                          err=rel[worst])
+        del ref
+    del grads
+
+    kernels.reset_launch_counts()
+    mesh.collectives.clear()
+    out["losses"], out["epoch_step_ms"] = _parallel_epochs(tr)
+    out["step_collectives"] = copy.deepcopy(mesh.collectives)
+    val = make_synthetic_scene(spec, split="val")
+    t0 = time.perf_counter()
+    with watch_lidar_sweep() as frame_render:
+        res = evaluate(tr, val, use_ema=False, log_fn=None)
+    torch.cuda.synchronize()
+    out["eval_s"] = time.perf_counter() - t0
+    out["sharded_render_s"] = frame_render["seconds"]
+    sharded = frame_render["out"]
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["eval"] = res["combined"]
+    out["differ"] = replicas_differ(mesh, tr.replicated_state())
+    out["n_replicated"] = len(tr.replicated_state())
+    if mesh.is_main:
+        t0 = time.perf_counter()
+        single = render_lidar_sweep(
+            tr.renderer, val.poses_lidar, val.times, val.H_lidar,
+            val.W_lidar, val.intrinsics_lidar, val.intrinsics_hoz_lidar,
+            occ_kwargs=tr._occ_kwargs(tr.occ_grid_lidar, lidar=True))
+        torch.cuda.synchronize()
+        out["single_render_s"] = time.perf_counter() - t0
+        out["render_err"] = {
+            k: float(np.abs(sharded[k] - single[k]).max())
+            / max(float(np.abs(single[k]).max()), 1e-30) for k in single}
+    mesh.barrier()
+    out["step_ms"], out["host_ms"] = _time_steps(tr, False, n=2, warmup=1)
+    return out
+
+
+def parallel_two_ranks():
+    """Phase 11 (a): two ranks on the one card over gloo, against the
+    single process. Returns the ranks' results."""
+    import tempfile
+    from nvsf_torch.parallel.mesh import spawn
+    tmp = Path(tempfile.mkdtemp(prefix="nvsf_parallel_"))
+    try:
+        ref_path = tmp / "reference.pt"
+        t0 = time.perf_counter()
+        ref_losses = _parallel_reference(ref_path)
+        torch.cuda.empty_cache()
+        log("parallel", f"single process reference (f32 step, 8 bf16 "
+                        f"steps) in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ranks = spawn(parallel_rank, 2, (str(ref_path),), device="cuda:0",
+                      backend="gloo", timeout=600.0)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    f32 = r0["f32"]
+    log("parallel", f"(a) 2 ranks over gloo on cuda:0, joint-tuned "
+                    f"(2048 + 2048 rays, 1024 + 1024 a rank): spawn, setup "
+                    f"and checks {t_ranks:.1f} s (trainer setup "
+                    f"{r0['setup_s']:.1f} s a rank)")
+    log("parallel", f"f32 step, 2 ranks vs 1 process: loss {f32['loss']!r} "
+                    f"vs {f32['ref_loss']!r}; worst gradient {f32['worst']} "
+                    f"{f32['err']:.3e} of its max (tol 1e-5)")
+    assert abs(f32["loss"] - f32["ref_loss"]) <= 1e-5 * abs(f32["ref_loss"])
+    assert f32["err"] <= 1e-5, \
+        f"2-rank gradients vs 1 process: {f32['worst']} {f32['err']:.3e}"
+    for r in ranks:
+        assert r["differ"] == [], \
+            f"rank {r['rank']}: state differs from rank 0: {r['differ']}"
+        assert all(np.isfinite(v) for v in r["losses"])
+    assert ranks[1]["losses"] == r0["losses"]
+    log("parallel", f"bf16 epochs (random, patch; 4 steps each, 2 grid "
+                    f"refreshes): 2 ranks {r0['losses']}, 1 process "
+                    f"{ref_losses}; {r0['n_replicated']} replicated tensors "
+                    f"(params, EMA, Adam moments, U-Net, grids, error maps) "
+                    f"bit for bit equal on both ranks")
+    ev = r0["eval"]
+    bad = [k for k in ("point", "depth", "raydrop")
+           if not np.all(np.isfinite(np.asarray(ev[k])[:2]))]
+    assert not bad, f"sharded eval: non-finite {bad}: {ev}"
+    err = r0["render_err"]
+    log("parallel", f"sharded eval of the val frame {r0['eval_s']:.1f} s, "
+                    f"its LiDAR render {r0['sharded_render_s']:.1f} s "
+                    f"(point {ev['point']}, depth {ev['depth']}); the frame "
+                    f"rendered by rank 0 alone in "
+                    f"{r0['single_render_s']:.1f} s, sharded vs alone: "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+                    + f" of the max (tol {SHARDED_RENDER_RTOL})")
+    assert max(err.values()) <= SHARDED_RENDER_RTOL, err
+    steps = sum(len(o) for _, o in PARALLEL_EPOCHS)
+    coll = r0["step_collectives"]
+    log("parallel", "collectives a step (rank 0, mean of the 8): " + "; ".join(
+        f"{k} {v['calls'] / steps:.2f} calls {v['bytes'] / steps / 2**20:.2f}"
+        f" MiB" for k, v in coll.items()))
+    return ranks
+
+
+def parallel_cli():
+    """Phase 11 (b): the CLI with ``--mesh_shape 1`` (one rank over NCCL)
+    on phase 7's argv, cut to 2 epochs and 20 refine steps, with its val
+    evals at raydrop threshold 0. Returns the rank's summary and its ms a step."""
+    from nvsf_torch.scripts.main_nvsf import main as cli_main
+    ws = PARALLEL_DIR / "cli"
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    argv = [
+        "--config", str(REPO / "configs" / "kitti360_1908.txt"),
+        "--dataloader", "synthetic", "--num_frames", "8",
+        "--intrinsics_lidar", "10.0", "40.0", "--lidar_max_depth", "30",
+        "--epochs", "2", "--eval_interval", "2", "--refine_steps", "20",
+        # after 2 epochs the raydrop head drops every ray of the val frame
+        # at 0.5 (phase 7 needs more than 4 epochs): at 0 the point meter
+        # of the plain eval has points, and both matrices are held whole
+        "--raydrop_thres", "0",
+        "--ema_decay", "0.5", "--workspace", str(ws), "--mesh_shape", "1"]
+    t0 = time.perf_counter()
+    (cli,) = cli_main(argv)
+    t_cli = time.perf_counter() - t0
+    name = "nvsf"
+    assert cli["epoch"] == 2 and cli["has_unet"], cli
+    written = [Path(p).name for p in cli["checkpoints"]]
+    assert len(written) == len(set(written)), f"written twice: {written}"
+    assert {f"{name}_ep0002.pkl", f"{name}_refine.pkl"} <= set(written) \
+        == set(p.name for p in (ws / "checkpoints").iterdir()), written
+    matrices = {}
+    for stem in (f"{name}_ep0002", f"{name}_ep0002_refined"):
+        m = json.loads((ws / "validation" / f"{stem}_error_matrix_combined"
+                        ".json").read_text())
+        bad = _finite_meters(m)
+        assert not bad, f"{stem}: non-finite {bad}: {m}"
+        matrices[stem] = m
+    # ms a step of the last epoch (2, a patch epoch), as phase 7's
+    cli_ms = (cli["last_timers"]["train epoch"] * 1e3
+              / (cli["global_step"] / cli["epoch"]))
+    log("parallel", f"(b) --mesh_shape 1 through the CLI (one rank, NCCL): "
+                    f"{t_cli:.1f} s with the spawn; checkpoints {written}; "
+                    f"eval point {matrices[f'{name}_ep0002']['point']}, "
+                    f"refined {matrices[f'{name}_ep0002_refined']['point']};"
+                    f" collectives {cli['collectives']}")
+    return cli, cli_ms
+
+
+def phase_parallel(smi, slice_step_ms, cli_step_ms):
+    """Phase 11: (a) two ranks on one card over gloo against the single
+    process, (b) one rank over NCCL through the CLI. Returns the launches
+    of both runs' ranks."""
+    t_phase = time.perf_counter()
+    ranks = parallel_two_ranks()
+    r0 = ranks[0]
+    cli, cli_ms = parallel_cli()
+    log("parallel", f"step times: joint-tuned, 1 process (phase 4) "
+                    f"{slice_step_ms:.1f} ms, 2 ranks over gloo on one card "
+                    f"{r0['step_ms']:.1f} ms (host returns after "
+                    f"{r0['host_ms']:.1f} ms); the shipped config through "
+                    f"the CLI, a step of its last (patch) epoch: 1 process "
+                    f"(phase 7, epoch 12) {cli_step_ms:.1f} ms, 1 rank over "
+                    f"NCCL (epoch 2) {cli_ms:.1f} ms ({smi})")
+    launches = {k: r0["launches"][k] + ranks[1]["launches"][k]
+                + cli["launches"][k] for k in r0["launches"]}
+    missing = [k for k in TRAIN_KERNELS + ("chamfer_min_dist",)
+               if launches[k] == 0]
+    assert not missing, f"kernels not launched under the mesh: {missing}"
+    log("parallel", f"launches (both ranks of (a), the rank of (b)) "
+                    f"{launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2045,7 +2349,7 @@ def main():
     done("build")
     rows = phase_kernels()
     done("kernels")
-    tr, train_launches = phase_slice(smi)
+    tr, train_launches, slice_step_ms = phase_slice(smi)
     for name, rs in phase_step_kernels(tr).items():
         rows[name] += rs
     done("slice")
@@ -2058,7 +2362,7 @@ def main():
     torch.cuda.empty_cache()
     phase_learning()
     done("learning")
-    cli_launches = phase_cli(smi)
+    cli_launches, cli_step_ms = phase_cli(smi)
     done("cli")
     uniform_paths, tr, _ = phase_uniform(smi, trained, stream)
     del trained
@@ -2072,7 +2376,10 @@ def main():
     for name, rs in phase_step_kernels(tr, "joint").items():
         rows[name] += rs
     del tr
+    torch.cuda.empty_cache()
     done("joint")
+    parallel_launches = phase_parallel(smi, slice_step_ms, cli_step_ms)
+    done("parallel")
     # B1 and B2 are one kernel with a precision flag: its rows and launches
     # split by precision
     rows["segment_add_f32"] = [r for r in rows["segment_add"]
@@ -2081,7 +2388,7 @@ def main():
                            if " f32 " not in r["variant"]]
     paths = {"train": train_launches, "eval": eval_launches,
              "cli": cli_launches, **uniform_paths, "kitti": kitti_launches,
-             "joint": joint_launches}
+             "joint": joint_launches, "parallel": parallel_launches}
     for counts in paths.values():
         counts["segment_add"] -= counts["segment_add_f32"]
     record = []

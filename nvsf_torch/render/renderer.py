@@ -139,6 +139,23 @@ class Renderer:
                                          self.min_near)
         return nears[:, None], fars[:, None]
 
+    def render_noise(self, n: int, K: Optional[int], generator, device,
+                     given: Optional[dict] = None) -> dict:
+        """A branch's perturbation draws for ``n`` rays: ``z_noise`` [n, T]
+        and, with ``K`` (occupancy sampling) and ``occ_jitter``,
+        ``jitter_u`` [n, K]. Each is taken from ``given`` where it is
+        there, else drawn from ``generator`` in that order (a caller that
+        draws at the batch's full shape and slices gets the draws a
+        single render of the batch makes)."""
+        dr = {k: v for k, v in (given or {}).items() if v is not None}
+        if "z_noise" not in dr:
+            dr["z_noise"] = torch.rand((n, self.num_steps),
+                                       generator=generator, device=device)
+        if K is not None and self.occ_jitter and "jitter_u" not in dr:
+            dr["jitter_u"] = torch.rand((n, K), generator=generator,
+                                        device=device)
+        return dr
+
     def _query_density(self, pts, time, cal_lidar_color, skip_warp=False):
         """The field's density over a flat [M, 3] point batch
         (``renderer.py:176-200``). With ``remat_chunks`` C > 1 the batch
@@ -229,8 +246,8 @@ class Renderer:
         z_vals = nears + (fars - nears) * linspace01(T, dev)[None, :]
         sample_dist = (fars - nears) / T
         if perturb:
-            if z_noise is None:
-                z_noise = torch.rand((N, T), generator=generator, device=dev)
+            z_noise = self.render_noise(N, None, generator, dev,
+                                        {"z_noise": z_noise})["z_noise"]
             z_vals = z_vals + (z_noise - 0.5) * sample_dist
         if self.upsample_steps > 0:
             z_vals = self._importance_resample(
@@ -293,17 +310,15 @@ class Renderer:
         z_cand = nears + (fars - nears) * linspace01(T, dev)[None, :]
         sample_dist = (fars - nears) / T
         if perturb:
-            if z_noise is None:
-                z_noise = torch.rand((N, T), generator=generator, device=dev)
-            z_cand = z_cand + (z_noise - 0.5) * sample_dist
+            dr = self.render_noise(N, K, generator, dev,
+                                   {"z_noise": z_noise, "jitter_u": jitter_u})
+            z_cand = z_cand + (dr["z_noise"] - 0.5) * sample_dist
 
         z_vals, valid = occ.compact_samples(occ_grid, rays_o, rays_d, z_cand,
                                             K, occ_thresh)
         if perturb and self.occ_jitter:
-            if jitter_u is None:
-                jitter_u = torch.rand((N, K), generator=generator, device=dev)
             z_vals = stratified_segment_jitter(z_vals, sample_dist, T, K,
-                                               jitter_u)
+                                               dr["jitter_u"])
 
         xyzs = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
         xyzs = torch.minimum(torch.maximum(xyzs, aabb[:3]), aabb[3:])
@@ -343,25 +358,20 @@ class Renderer:
         for ro, rd, lidar, grid, dr in ((ro_l, rd_l, True, occ_grid_l,
                                          draws_l), (ro_c, rd_c, False,
                                                     occ_grid_c, draws_c)):
-            N, dr = ro.shape[0], dr or {}
             nears, fars = self._near_far(ro, rd, lidar)
             z = nears + (fars - nears) * linspace01(T, dev)[None, :]
             sample_dist = (fars - nears) / T
             if perturb:
-                u = dr.get("z_noise")
-                if u is None:
-                    u = torch.rand((N, T), generator=generator, device=dev)
-                z = z + (u - 0.5) * sample_dist
+                dr = self.render_noise(ro.shape[0], K if use_occ else None,
+                                       generator, dev, dr)
+                z = z + (dr["z_noise"] - 0.5) * sample_dist
             valid = None
             if use_occ:
                 z, valid = occ.compact_samples(grid, ro, rd, z, K,
                                                occ_thresh)
                 if perturb and self.occ_jitter:
-                    u = dr.get("jitter_u")
-                    if u is None:
-                        u = torch.rand((N, K), generator=generator,
-                                       device=dev)
-                    z = stratified_segment_jitter(z, sample_dist, T, K, u)
+                    z = stratified_segment_jitter(z, sample_dist, T, K,
+                                                  dr["jitter_u"])
             xyz = ro[:, None, :] + rd[:, None, :] * z[..., None]
             xyz = torch.minimum(torch.maximum(xyz, aabb[:3]), aabb[3:])
             branches.append((rd, xyz, z, sample_dist, valid, lidar))

@@ -1,10 +1,17 @@
 """Full-frame LiDAR and camera renders for a list of poses (counterpart of
-``nvsf_tpu/render/sweep.py:63-128``), on the renderer's device, one frame
-after another. Each frame goes through ``Renderer.render``: the
+``nvsf_tpu/render/sweep.py``), on the renderer's device, one frame after
+another. Each frame goes through ``Renderer.render``: the
 occupancy-sorted early-exit marcher with an occupancy grid, chunks of the
-dense uniform ``run`` without one. Sharding a sweep over several devices
-(the JAX package's ``mesh`` argument) is not ported (``ROADMAP.md`` A5,
-data parallel).
+dense uniform ``run`` without one.
+
+With a ``mesh`` (``nvsf_torch.parallel.mesh``) a frame's rays are padded
+to a multiple of the rank count (origin 0, direction 1, as
+``nvsf_tpu/render/sweep.py:27-34`` pads them), each rank renders its
+slice, and the whole frame is gathered onto every rank. The marcher sorts
+and chunks the rays of each rank's slice, where the JAX package's sharded
+program sorts the whole frame's: a ray's output differs by what its chunk
+adds after the ray's transmittance fell below the marcher's 1e-4, so by
+at most 1e-4 of the largest depth or color.
 """
 
 from __future__ import annotations
@@ -13,14 +20,28 @@ import numpy as np
 import torch
 
 from nvsf_torch.lib import rays as raylib
+from nvsf_torch.parallel.mesh import gather_rays, shard_rays
 
 
 def _device(rend) -> torch.device:
     return next(rend.field.parameters()).device
 
 
+def _render_frame(rend, ro, rd, t, mesh, **kw) -> dict:
+    """``rend.render`` of a frame's rays, sharded over ``mesh`` when one is
+    given; the whole frame's outputs."""
+    if mesh is None:
+        return rend.render(ro, rd, t, **kw)
+    N = ro.shape[0]
+    pad = (-N) % mesh.world_size
+    ro = torch.cat([ro, ro.new_zeros((pad, 3))])
+    rd = torch.cat([rd, rd.new_ones((pad, 3))])
+    out = rend.render(*shard_rays(mesh, ro, rd), t, **kw)
+    return {k: gather_rays(mesh, v, N + pad)[:N] for k, v in out.items()}
+
+
 def render_pano(rend, pose, t, H, W, intrinsics_lidar, intrinsics_hoz_lidar,
-                occ_kwargs=None):
+                occ_kwargs=None, mesh=None):
     """One LiDAR pano at ``pose`` [4, 4] and time ``t`` -> tensors
     {"depth", "raydrop", "intensity"} of [H, W] on the renderer's device.
     ``occ_kwargs`` come from ``Trainer._occ_kwargs``."""
@@ -29,15 +50,15 @@ def render_pano(rend, pose, t, H, W, intrinsics_lidar, intrinsics_hoz_lidar,
     ro, rd = raylib.get_lidar_rays(
         torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=dev),
         inds, H, W, intrinsics_lidar, intrinsics_hoz_lidar)
-    out = rend.render(ro, rd, torch.tensor(float(t), device=dev),
-                      cal_lidar_color=True, **(occ_kwargs or {}))
+    out = _render_frame(rend, ro, rd, torch.tensor(float(t), device=dev),
+                        mesh, cal_lidar_color=True, **(occ_kwargs or {}))
     img = out["image_lidar"]
     return {"depth": out["depth_lidar"].reshape(H, W),
             "raydrop": img[:, 0].reshape(H, W),
             "intensity": img[:, 1].reshape(H, W)}
 
 
-def render_view(rend, pose, t, H, W, intrinsics, occ_kwargs=None):
+def render_view(rend, pose, t, H, W, intrinsics, occ_kwargs=None, mesh=None):
     """One camera view -> tensors {"rgb" [H, W, 3], "depth" [H, W]} on the
     renderer's device, over a white background."""
     dev = _device(rend)
@@ -47,9 +68,9 @@ def render_view(rend, pose, t, H, W, intrinsics, occ_kwargs=None):
         inds, H, W,
         torch.as_tensor(np.asarray(intrinsics), dtype=torch.float32,
                         device=dev))
-    out = rend.render(ro, rd, torch.tensor(float(t), device=dev),
-                      cal_lidar_color=False, bg_color=1.0,
-                      **(occ_kwargs or {}))
+    out = _render_frame(rend, ro, rd, torch.tensor(float(t), device=dev),
+                        mesh, cal_lidar_color=False, bg_color=1.0,
+                        **(occ_kwargs or {}))
     return {"rgb": out["image"].reshape(H, W, 3),
             "depth": out["depth"].reshape(H, W)}
 
@@ -60,19 +81,19 @@ def _stack(frames, keys):
 
 
 def render_lidar_sweep(rend, poses, times, H, W, intrinsics_lidar,
-                       intrinsics_hoz_lidar, occ_kwargs=None):
+                       intrinsics_hoz_lidar, occ_kwargs=None, mesh=None):
     """LiDAR panos for F poses [F, 4, 4] and times [F] -> numpy arrays
     depth, raydrop, intensity of [F, H, W]."""
     frames = [render_pano(rend, p, t, H, W, intrinsics_lidar,
-                          intrinsics_hoz_lidar, occ_kwargs)
+                          intrinsics_hoz_lidar, occ_kwargs, mesh)
               for p, t in zip(poses, times)]
     return _stack(frames, ("depth", "raydrop", "intensity"))
 
 
 def render_camera_sweep(rend, poses, times, H, W, intrinsics,
-                        occ_kwargs=None):
+                        occ_kwargs=None, mesh=None):
     """Camera frames for F poses -> numpy rgb [F, H, W, 3], depth
     [F, H, W]."""
-    frames = [render_view(rend, p, t, H, W, intrinsics, occ_kwargs)
+    frames = [render_view(rend, p, t, H, W, intrinsics, occ_kwargs, mesh)
               for p, t in zip(poses, times)]
     return _stack(frames, ("rgb", "depth"))

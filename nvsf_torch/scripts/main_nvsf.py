@@ -8,9 +8,16 @@ Usage:
   python -m nvsf_torch.scripts.main_nvsf --config ... --test_eval --use_refine
   python -m nvsf_torch.scripts.main_nvsf --config ... --test \\
       --delta_position 0 0 1 --V_lidar_ch 32      # novel sensor
+  python -m nvsf_torch.scripts.main_nvsf --config ... --mesh_shape 4
 
-Runs on the card; ``main(argv, device="cpu")`` runs on the CPU. One
-device only: a ``mesh_shape`` (data parallelism) is refused.
+Runs on the card; ``main(argv, device="cpu")`` runs on the CPU. A
+``mesh_shape`` ("4", or "2x2": the axes fold into one data axis) trains,
+evaluates and refines data parallel (``nvsf_torch.parallel.mesh``): that
+many ranks, each a process started here, one to a card over NCCL, or on
+the CPU over gloo with ``device="cpu"``. An empty ``mesh_shape`` uses every
+card when there are several, as the JAX package uses every device, and
+runs in this process on one card. A ``mesh_shape`` asking for more ranks
+than there are cards raises (the JAX package takes the first devices).
 """
 
 from __future__ import annotations
@@ -18,11 +25,13 @@ from __future__ import annotations
 import os
 import random
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from nvsf_torch.config import load_config
+from nvsf_torch.parallel.mesh import mesh_from_spec, spawn
 
 
 def seed_everything(seed: int):
@@ -67,10 +76,12 @@ def _novel_sensor_dict(cfg):
     return ns if changed else None
 
 
-def _test(cfg, device):
+def _test(cfg, device, mesh=None):
     """--test / --test_eval: load a checkpoint, score the test scene when
     it has ground truth and --test_eval asks, render and dump every frame,
-    export the density mesh."""
+    export the density mesh. Under a mesh the score is sharded and rank 0
+    alone renders the test frames and the mesh, as the JAX package renders
+    them unsharded."""
     from nvsf_torch.render.export import export_mesh_density
     from nvsf_torch.train.evaluate import evaluate
     from nvsf_torch.train.test_mode import run_test
@@ -79,7 +90,7 @@ def _test(cfg, device):
     cfg_run = cfg.finalize(steps_per_epoch=1)
     test_scene = _load_scene(cfg_run, "test", novel_sensor=ns)
     # the trainer binds to the test scene for its shapes
-    trainer = Trainer(cfg_run, test_scene, device=device)
+    trainer = Trainer(cfg_run, test_scene, device=device, mesh=mesh)
     if not trainer.load_checkpoint(cfg_run.ckpt,
                                    prefer_refine=cfg_run.use_refine):
         raise FileNotFoundError(
@@ -91,6 +102,8 @@ def _test(cfg, device):
             evaluate(trainer, test_scene, use_refine=cfg_run.use_refine,
                      save_dir=results_dir, name=cfg_run.name,
                      write_outputs=True)
+    if not trainer.is_main:
+        return trainer
     with timers.phase("test render"):
         run_test(trainer, test_scene, save_dir=results_dir,
                  name=cfg_run.name, use_refine=cfg_run.use_refine)
@@ -105,10 +118,11 @@ def _test(cfg, device):
     return trainer
 
 
-def _train(cfg, device):
+def _train(cfg, device, mesh=None):
     """Training with an eval and checkpoints every eval_interval epochs
     (best by combined CD), then the U-Net refine and the refined eval
-    (none with ``refine_steps`` 0)."""
+    (none with ``refine_steps`` 0). Under a mesh rank 0 alone writes the
+    log, the tensorboard scalars and the sampling heatmaps."""
     from nvsf_torch.train.evaluate import evaluate
     from nvsf_torch.train.logging import (Logger, TensorboardWriter,
                                           model_summary,
@@ -118,13 +132,15 @@ def _train(cfg, device):
     train_scene = _load_scene(cfg, "train")
     cfg_run = cfg.finalize(steps_per_epoch=len(train_scene))
     val_scene = _load_scene(cfg_run, "val")
-    trainer = Trainer(cfg_run, train_scene, device=device)
+    trainer = Trainer(cfg_run, train_scene, device=device, mesh=mesh)
     if cfg_run.ckpt != "scratch":
         trainer.load_checkpoint(cfg_run.ckpt)
     timers = trainer.timers
 
-    log = Logger(cfg_run.workspace, cfg_run.name)
-    tb = TensorboardWriter(cfg_run.workspace)
+    main_rank = trainer.is_main
+    log = Logger(cfg_run.workspace if main_rank else None, cfg_run.name,
+                 quiet=not main_rank)
+    tb = TensorboardWriter(cfg_run.workspace if main_rank else None)
     log(f"[INFO] model parameters:\n"
         f"{model_summary(dict(trainer.field.named_parameters()))}")
     t0 = time.time()
@@ -138,7 +154,8 @@ def _train(cfg, device):
                 f"({(time.time() - t0) / 60:.1f} min) parts="
                 + " ".join(f"{k}={v:.4g}" for k, v in stats.parts.items()
                            if k != "loss"))
-            if cfg_run.vis_training and trainer.error_map is not None:
+            if (cfg_run.vis_training and trainer.error_map is not None
+                    and main_rank):
                 save_sampling_heatmap(
                     trainer.error_map[len(train_scene) // 2].cpu().numpy(),
                     os.path.join(cfg_run.workspace, "validation",
@@ -182,23 +199,58 @@ def _train(cfg, device):
     return trainer
 
 
+def _run(cfg, device, mesh=None):
+    if cfg.test or cfg.test_eval:
+        return _test(cfg, device, mesh)
+    return _train(cfg, device, mesh)
+
+
+def _run_rank(mesh, cfg):
+    """One rank of a data-parallel run -> what the caller of ``main``
+    gets of it: epoch and step, stage wall times (totals, and the last of
+    each stage), the kernel launches and collectives of this rank, the
+    checkpoints it wrote."""
+    from nvsf_torch.ops import kernels
+    seed_everything(cfg.seed)
+    tr = _run(cfg, None, mesh)
+    return {"rank": mesh.rank, "epoch": tr.epoch,
+            "global_step": tr.global_step, "has_unet": tr.has_unet,
+            "timers": dict(tr.timers.totals),
+            "last_timers": dict(tr.timers.last),
+            "launches": dict(kernels.LAUNCHES),
+            "collectives": mesh.collectives,
+            "checkpoints": tr.checkpoints_written}
+
+
+def mesh_size(spec: str, cards: Optional[int]) -> int:
+    """Ranks of the run's mesh, 0 for none (this process alone), with
+    ``cards`` cards visible (None: the ranks run on the CPU)."""
+    if not spec:
+        return cards if cards and cards > 1 else 0
+    n = mesh_from_spec(spec)
+    if cards is not None and n > cards:
+        raise ValueError(f"mesh_shape={spec!r} asks for {n} ranks, one to a "
+                         f"card, and {cards} cards are visible")
+    return n
+
+
 def main(argv=None, device=None):
     """Run the CLI on ``argv`` on ``device`` (default: the card). Returns
-    the trainer, whose ``timers`` hold the wall time of each stage."""
+    the trainer, whose ``timers`` hold the wall time of each stage; under
+    a mesh, each rank's summary (``_run_rank``) in rank order."""
     cfg = load_config(argv)
-    if cfg.mesh_shape:
-        raise NotImplementedError(
-            f"mesh_shape={cfg.mesh_shape!r}: data parallelism is not ported "
-            "to nvsf_torch (ROADMAP.md A5, data parallel); it trains on "
-            "one device")
+    on_cpu = torch.device("cuda" if device is None else device).type == "cpu"
+    world = mesh_size(cfg.mesh_shape,
+                      None if on_cpu else torch.cuda.device_count())
     seed_everything(cfg.seed)
     os.makedirs(cfg.workspace, exist_ok=True)
     with open(os.path.join(cfg.workspace, f"args_{cfg.name}.txt"), "w") as f:
         for k, v in cfg.to_dict().items():
             f.write(f"{k} = {v}\n")
-    if cfg.test or cfg.test_eval:
-        return _test(cfg, device)
-    return _train(cfg, device)
+    if world:
+        return spawn(_run_rank, world, (cfg,),
+                     device="cpu" if on_cpu else "cuda")
+    return _run(cfg, device)
 
 
 if __name__ == "__main__":

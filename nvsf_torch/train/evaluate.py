@@ -8,6 +8,9 @@ Counterpart of ``nvsf_tpu/train/evaluate.py``, which rebuilds
 streaming occupancy marcher, and the PointsMeter's chamfer runs there too
 (the B5 kernel on the card). With ``use_refine`` and a trained U-Net,
 the refiner replaces the rendered raydrop before it masks the frame.
+Under the trainer's mesh the frames render sharded over its ranks
+(``render/sweep.py``), every rank scores the whole frames and returns the
+same results, and rank 0 alone writes files and log lines.
 """
 
 from __future__ import annotations
@@ -103,6 +106,8 @@ def evaluate(trainer, scene, *, use_refine: bool = False, use_ema: bool = True,
     the EMA of the parameters (``trainer.ema_field``).
     """
     cfg = trainer.cfg
+    if not trainer.is_main:
+        save_dir, log_fn = None, None
     has_ann = bool(scene.annotations)
     cats = ["combined"] + (["background", "foreground"] if has_ann else [])
 
@@ -112,6 +117,7 @@ def evaluate(trainer, scene, *, use_refine: bool = False, use_ema: bool = True,
         if cfg.enable_rgb else {}
 
     # render every frame first, one after another on the trainer's device
+    # (sharded over its mesh)
     rend = trainer.eval_renderer(use_ema)
     lidar_sw = cam_sw = None
     if cfg.enable_lidar and scene.images_lidar is not None:
@@ -120,12 +126,13 @@ def evaluate(trainer, scene, *, use_refine: bool = False, use_ema: bool = True,
             scene.W_lidar, scene.intrinsics_lidar,
             scene.intrinsics_hoz_lidar,
             occ_kwargs=trainer._occ_kwargs(trainer.occ_grid_lidar,
-                                           lidar=True))
+                                           lidar=True), mesh=trainer.mesh)
     if cfg.enable_rgb and scene.images is not None:
         cam_sw = render_camera_sweep(
             rend, scene.poses, scene.times, scene.H, scene.W,
             scene.intrinsics,
-            occ_kwargs=trainer._occ_kwargs(trainer.occ_grid_rgb))
+            occ_kwargs=trainer._occ_kwargs(trainer.occ_grid_rgb),
+            mesh=trainer.mesh)
 
     for fi in range(len(scene)):
         ann = scene.annotations[fi] if has_ann else []

@@ -45,13 +45,17 @@ class Logger:
 
 
 class TensorboardWriter:
-    """Thin tensorboardX wrapper, disabled when tensorboardX is absent."""
+    """Thin tensorboardX wrapper, disabled without a ``workspace`` (on the
+    ranks of a mesh but rank 0) or when tensorboardX is absent."""
 
-    def __init__(self, workspace: str, name: str = "run"):
+    def __init__(self, workspace: Optional[str], name: str = "run"):
+        self.writer = None
+        if not workspace:
+            return
         try:
             import tensorboardX
         except ImportError:
-            self.writer = None
+            pass
         else:
             self.writer = tensorboardX.SummaryWriter(
                 os.path.join(workspace, name))

@@ -22,12 +22,14 @@ class PhaseTimers:
 
     ``sync`` (``torch.cuda.synchronize`` for a trainer on the card) runs
     before each stage's clock stops, so that work queued on the device is
-    charged to the stage that queued it."""
+    charged to the stage that queued it. ``last`` holds each stage's most
+    recent time."""
 
     def __init__(self, sync: Optional[Callable[[], None]] = None):
         self.sync = sync
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
+        self.last = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -37,7 +39,8 @@ class PhaseTimers:
         finally:
             if self.sync is not None:
                 self.sync()
-            self.totals[name] += time.perf_counter() - t0
+            self.last[name] = time.perf_counter() - t0
+            self.totals[name] += self.last[name]
             self.counts[name] += 1
 
     def report(self) -> str:

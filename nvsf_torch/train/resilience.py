@@ -4,7 +4,10 @@ memory, by freeing its cached memory and reloading the latest checkpoint
 
 Only ``torch.cuda.OutOfMemoryError`` is retried. Other CUDA errors leave
 the process's CUDA context broken (a retry in the same process fails
-again), and an internal assert is a bug: both propagate."""
+again), and an internal assert is a bug: both propagate. Under a
+data-parallel mesh nothing is retried: one rank retrying while the others
+wait in a collective would deadlock, so the failure ends every rank (the
+JAX package, one process over all its devices, retries there)."""
 
 from __future__ import annotations
 
@@ -24,8 +27,9 @@ def run_epochs_with_recovery(trainer, first_epoch: int, last_epoch: int,
                              backoff_s: float = 30.0, log_fn=print):
     """Run trainer epochs first..last, ``on_epoch(epoch, stats)`` after
     each (eval and checkpoint hooks); on a recoverable failure, free the
-    card's cached memory and restart from the latest checkpoint. Each
-    restart logs a line starting ``[recovery]``."""
+    card's cached memory and restart from the latest checkpoint (never
+    under the trainer's mesh). Each restart logs a line starting
+    ``[recovery]``."""
     restarts = 0
     ep = first_epoch
     while ep <= last_epoch:
@@ -35,7 +39,8 @@ def run_epochs_with_recovery(trainer, first_epoch: int, last_epoch: int,
             on_epoch(ep, stats)
             ep += 1
         except Exception as err:  # noqa: BLE001 — classified below
-            if not is_recoverable(err) or restarts >= max_restarts:
+            if (not is_recoverable(err) or restarts >= max_restarts
+                    or getattr(trainer, "mesh", None) is not None):
                 raise
             restarts += 1
             if log_fn:

@@ -23,6 +23,15 @@ branches render in one ``Renderer.run_joint`` pass, as there:
 
 Every random draw of a step can be injected through ``draws`` (see
 ``loss_and_grads``), so tests can replay the JAX package's draws.
+
+With a ``mesh`` (``nvsf_torch.parallel.mesh``) the step is one global step
+split by rays across the mesh's ranks, as the JAX package's sharded step
+(``nvsf_tpu/train/trainer.py:395-430``): every rank draws the whole batch,
+renders its slice of the rays, gathers the outputs the losses read and
+computes the whole batch's loss, and the gradients are averaged over the
+ranks before Adam. Rank 0 broadcasts the parameters, EMA, grids and error
+maps at construction, its error-map rows and grids after each update and
+its U-Net after the refine stage; it alone writes checkpoints and traces.
 """
 
 from __future__ import annotations
@@ -47,6 +56,8 @@ from nvsf_torch.lib.color import srgb_to_linear
 from nvsf_torch.models.field import FieldSpec, NVSFField
 from nvsf_torch.models.unet import UNet
 from nvsf_torch.ops.occupancy import OccupancyGrid
+from nvsf_torch.parallel.mesh import (all_reduce_grads, gather_rays,
+                                      replicate, shard_rays)
 from nvsf_torch.render import sweep
 from nvsf_torch.render.renderer import Renderer
 from nvsf_torch.train import checkpoint as ckpt
@@ -140,11 +151,12 @@ def resolve_device(device=None) -> torch.device:
 
 class Trainer:
     """Host loop around the training step, on one ``device`` (the card
-    unless ``device="cpu"``). Checkpoints go to
-    ``cfg.workspace/checkpoints`` as ``{cfg.name}_*.pkl``."""
+    unless ``device="cpu"``), or on this rank's device of a data-parallel
+    ``mesh``. Checkpoints go to ``cfg.workspace/checkpoints`` as
+    ``{cfg.name}_*.pkl``."""
 
     def __init__(self, cfg: NVSFConfig, scene: SceneData, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         self.joint = cfg.enable_lidar and cfg.enable_rgb and cfg.joint_fusion
         if self.joint:
             # the fused path evaluates both branches in one density batch:
@@ -167,7 +179,9 @@ class Trainer:
         self.scene = scene
         self.workspace = cfg.workspace
         self.name = cfg.name
-        self.device = dev = resolve_device(device)
+        self.mesh = mesh
+        self.device = dev = resolve_device(
+            mesh.device if mesh is not None and device is None else device)
 
         def t(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -259,6 +273,35 @@ class Trainer:
         self.unet = UNet(in_channels=3, channels=32, out_channels=1,
                          generator=init_gen).to(dev).eval()
         self.unet_trained = False
+        # paths of the checkpoints this process wrote (rank 0's under a
+        # mesh)
+        self.checkpoints_written = []
+        if mesh is not None:
+            replicate(mesh, self.replicated_state().values())
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes (no mesh, or its rank 0)."""
+        return self.mesh is None or self.mesh.is_main
+
+    def replicated_state(self) -> Dict[str, torch.Tensor]:
+        """Every tensor that the ranks of a mesh hold alike, by name: the
+        parameters, their EMA, Adam's moments, the U-Net, the occupancy
+        grids and the error maps."""
+        named = {f"field.{k}": p for k, p in self.field.named_parameters()}
+        named.update({f"ema.{k}": p for k, p in self.ema.items()})
+        for k, p in self.field.named_parameters():
+            st = self.optimizer.state.get(p, {})
+            named.update({f"adam.{m}.{k}": st[m] for m in
+                          ("exp_avg", "exp_avg_sq") if m in st})
+        named.update({f"unet.{k}": t for k, t in
+                      (*self.unet.named_parameters(),
+                       *self.unet.named_buffers())})
+        for k in ("occ_grid_lidar", "occ_grid_rgb", "error_map",
+                  "error_map_rgb"):
+            if getattr(self, k) is not None:
+                named[k] = getattr(self, k)
+        return named
 
     # ------------------------------------------------------------------
     def _check_far_plane(self, panos: np.ndarray) -> None:
@@ -331,7 +374,12 @@ class Trainer:
 
         ``draws`` replaces the step's random draws: ``lidar_rays`` /
         ``rgb_rays`` (sampler draws), ``lidar_render`` / ``rgb_render``
-        (``z_noise`` [N, T], ``jitter_u`` [N, K]) and ``bg`` [N, 3]."""
+        (``z_noise`` [N, T], ``jitter_u`` [N, K]) and ``bg`` [N, 3].
+
+        Under a mesh every draw is made (or given) at the batch's full N,
+        this rank renders its slice of the rays, the outputs the losses
+        read are gathered, and the loss, its parts and the gradients left
+        in ``.grad`` are the whole batch's."""
         cfg, scene, data = self.cfg, self.scene, self.data
         dev, gen, rend = self.device, self.generator, self.renderer
         draws = draws or {}
@@ -386,36 +434,58 @@ class Trainer:
             pc = self.pc_data["pc"][gfi]
             pcm = self.pc_data["pc_mask"][gfi]
 
-        def render(branch, ro, rd, lidar, K, **kw):
-            dr = draws.get(f"{branch}_render", {})
+        # each branch's rays and K, and its render draws at the batch's
+        # full shape (a rank of a mesh draws what a single process does)
+        n_rays, K = {}, {}
+        if cfg.enable_lidar:
+            n_rays["lidar"] = ro.shape[0]
+            K["lidar"] = cfg.num_steps_occ
+        if cfg.enable_rgb:
+            n_rays["rgb"] = ro_c.shape[0]
+            K["rgb"] = cfg.num_steps_occ if self.joint \
+                else cfg.num_steps_occ_rgb or cfg.num_steps_occ
+        rdraws = {b: rend.render_noise(
+            n, K[b] if self.occ is not None else None, gen, dev,
+            draws.get(f"{b}_render")) for b, n in n_rays.items()}
+
+        def render(branch, ro, rd, lidar, bg_color=None):
+            ro, rd, dr, bg_color = self._local_rays(ro, rd, rdraws[branch],
+                                                    bg_color)
             if self.occ is None:
-                return rend.run(ro, rd, t, cal_lidar_color=lidar,
-                                perturb=True, generator=gen,
-                                z_noise=dr.get("z_noise"), **kw)
-            return rend.run_occupancy(
-                ro, rd, t, self.occ, getattr(self, f"occ_grid_{branch}"),
-                num_steps_occ=K, cal_lidar_color=lidar, perturb=True,
-                generator=gen, z_noise=dr.get("z_noise"),
-                jitter_u=dr.get("jitter_u"), occ_thresh=cfg.occ_thresh, **kw)
+                out = rend.run(ro, rd, t, cal_lidar_color=lidar,
+                               perturb=True, generator=gen,
+                               z_noise=dr["z_noise"], bg_color=bg_color)
+            else:
+                out = rend.run_occupancy(
+                    ro, rd, t, self.occ, getattr(self, f"occ_grid_{branch}"),
+                    num_steps_occ=K[branch], cal_lidar_color=lidar,
+                    perturb=True,
+                    generator=gen, z_noise=dr["z_noise"],
+                    jitter_u=dr.get("jitter_u"), occ_thresh=cfg.occ_thresh,
+                    bg_color=bg_color)
+            return self._gather_outputs(out, lidar, n_rays[branch])
 
         fl = None
         if self.joint:
-            # the flow loss's cloud rides in the joint flow batch
+            # the flow loss's cloud rides in the joint flow batch (the
+            # whole cloud on every rank of a mesh)
+            ro_l, rd_l, dr_l, _ = self._local_rays(ro, rd, rdraws["lidar"])
+            ro_cl, rd_cl, dr_c, bg_l = self._local_rays(ro_c, rd_c,
+                                                        rdraws["rgb"], bg)
             out, out_c, extra = rend.run_joint(
-                ro, rd, ro_c, rd_c, t, perturb=True, generator=gen,
-                draws_l=draws.get("lidar_render"),
-                draws_c=draws.get("rgb_render"), bg_color=bg, occ=self.occ,
+                ro_l, rd_l, ro_cl, rd_cl, t, perturb=True, generator=gen,
+                draws_l=dr_l, draws_c=dr_c, bg_color=bg_l, occ=self.occ,
                 occ_grid_l=self.occ_grid_lidar, occ_grid_c=self.occ_grid_rgb,
-                num_steps_occ=cfg.num_steps_occ, occ_thresh=cfg.occ_thresh,
+                num_steps_occ=K["lidar"], occ_thresh=cfg.occ_thresh,
                 x_flow_extra=pc)
+            out = self._gather_outputs(out, True, n_rays["lidar"])
+            out_c = self._gather_outputs(out_c, False, n_rays["rgb"])
             fl = extra.get("flow_extra")
         else:
             if cfg.enable_lidar:
-                out = render("lidar", ro, rd, True, cfg.num_steps_occ)
+                out = render("lidar", ro, rd, True)
             if cfg.enable_rgb:
-                out_c = render("rgb", ro_c, rd_c, False,
-                               cfg.num_steps_occ_rgb or cfg.num_steps_occ,
-                               bg_color=bg)
+                out_c = render("rgb", ro_c, rd_c, False, bg_color=bg)
 
         if cfg.enable_lidar:
             gt_raydrop = gt[:, 0]
@@ -484,8 +554,34 @@ class Trainer:
 
         loss = L.scrub_loss(total)
         loss.backward()
+        if self.mesh is not None:
+            all_reduce_grads(self.mesh, self.field.parameters())
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
             em_inputs
+
+    def _local_rays(self, ro, rd, dr, bg=None):
+        """This rank's slice of a branch's rays, render draws and
+        background [N, 3]; all of them without a mesh."""
+        if self.mesh is None:
+            return ro, rd, dr, bg
+        ro, rd = shard_rays(self.mesh, ro, rd)
+        dr = {k: shard_rays(self.mesh, v)[0] for k, v in dr.items()}
+        if torch.is_tensor(bg) and bg.dim():
+            bg = shard_rays(self.mesh, bg)[0]
+        return ro, rd, dr, bg
+
+    def _gather_outputs(self, out: dict, lidar: bool, n: int) -> dict:
+        """Under a mesh, the render outputs the losses read, whole on every
+        rank; ``out`` itself without one."""
+        if self.mesh is None:
+            return out
+        cfg = self.cfg
+        if lidar:
+            keys = ["image_lidar", "depth_lidar"] + (
+                ["weights", "z_vals"] if cfg.use_urf_loss else [])
+        else:
+            keys = ["image"] + (["depth"] if cfg.use_rgbd_loss else [])
+        return {k: gather_rays(self.mesh, out[k], n) for k in keys}
 
     def _structural_loss(self, fi, inds, depth_lidar, gt, patch_hw):
         """The patch structural regularizers of a patch step, on the rendered
@@ -527,6 +623,11 @@ class Trainer:
                 inds, err = em_inputs["rgb"]
                 self.error_map_rgb[fi] = sampler.update_error_map(
                     self.error_map_rgb[fi], inds, err, scene.H, scene.W)
+            if self.mesh is not None:
+                # duplicate cells of the batch take any of their writes
+                replicate(self.mesh, [em[fi] for em in (
+                    self.error_map, self.error_map_rgb) if em is not None],
+                    "error map")
         self.global_step += 1
         return {"loss": loss, **parts}
 
@@ -540,7 +641,7 @@ class Trainer:
         if (self.cfg.profile_dir and not self._profiled
                 and self.epoch >= min(self.cfg.epochs, 2)):
             self._profiled = True
-            trace = self.cfg.profile_dir
+            trace = self.cfg.profile_dir if self.is_main else None
         with self.timers.phase("train epoch"), device_trace(trace):
             return self._train_one_epoch(order)
 
@@ -580,11 +681,12 @@ class Trainer:
             stats = self.train_one_epoch()
             if ep % max(cfg.eval_interval, 1) == 0 or ep == max_epochs:
                 self.save_checkpoint(full=True)
-                log_fn(f"[epoch {ep}] loss={stats.loss:.5f} "
-                       f"({time.time() - t0:.1f}s) parts="
-                       + " ".join(f"{k}={v:.4f}"
-                                  for k, v in stats.parts.items()
-                                  if k != "loss"))
+                if self.is_main:
+                    log_fn(f"[epoch {ep}] loss={stats.loss:.5f} "
+                           f"({time.time() - t0:.1f}s) parts="
+                           + " ".join(f"{k}={v:.4f}"
+                                      for k, v in stats.parts.items()
+                                      if k != "loss"))
         return stats
 
     def _occ_refresh_times(self, generator):
@@ -612,7 +714,9 @@ class Trainer:
                                .manual_seed(0xACC + self.global_step))
 
     def refresh_occupancy(self, generator) -> None:
-        """One refresh of every grid at stratified times."""
+        """One refresh of every grid at stratified times (on every rank of
+        a mesh, which then takes rank 0's grids: duplicate cells of the
+        refresh take any of their writes)."""
         ts = self._occ_refresh_times(generator)
         for branch, lidar in (("lidar", True), ("rgb", False)):
             grid = getattr(self, f"occ_grid_{branch}")
@@ -622,6 +726,10 @@ class Trainer:
                 grid, lambda p, tt, lidar=lidar: self.field.density(
                     p, tt, cal_lidar_color=lidar, skip_warp=True)["sigma"],
                 ts, generator=generator))
+        if self.mesh is not None:
+            replicate(self.mesh, [g for g in (self.occ_grid_lidar,
+                                              self.occ_grid_rgb)
+                                  if g is not None], "occupancy grid")
 
     # ------------------------------------------------------------------
     # eval renders (``nvsf_tpu/train/trainer.py:624-666, 811-863, 913-921``)
@@ -654,7 +762,8 @@ class Trainer:
     def render_pano(self, pose, t, H, W, intrinsics_lidar,
                     intrinsics_hoz_lidar, use_ema=False) -> dict:
         """A LiDAR pano at any pose, time and intrinsics (novel-sensor
-        synthesis) -> numpy depth, raydrop, intensity [H, W]."""
+        synthesis) -> numpy depth, raydrop, intensity [H, W]; rendered by
+        this process alone, as the JAX package's ``render_pano``."""
         out = sweep.render_pano(
             self.eval_renderer(use_ema), pose, t, int(H), int(W),
             tuple(intrinsics_lidar), tuple(intrinsics_hoz_lidar),
@@ -689,19 +798,29 @@ class Trainer:
     def refine(self, steps: int = 1000, lr: float = 1e-3, log_fn=print):
         """Render every training frame from the EMA field, train the U-Net
         raydrop refiner on the renders, and write the refine checkpoint.
-        Returns the logged refine losses."""
+        Returns the logged refine losses. Under a mesh the frames render
+        sharded over the ranks, and the U-Net trains on rank 0 (cuDNN's
+        algorithms are not bitwise deterministic, so ranks training it
+        would drift apart), which broadcasts it; the other ranks return
+        no losses."""
         scene = self.scene
         with self.timers.phase("refine render"):
             sw = sweep.render_lidar_sweep(
                 self.ema_renderer, scene.poses_lidar, scene.times,
                 scene.H_lidar, scene.W_lidar, scene.intrinsics_lidar,
                 scene.intrinsics_hoz_lidar,
-                occ_kwargs=self._occ_kwargs(self.occ_grid_lidar, lidar=True))
+                occ_kwargs=self._occ_kwargs(self.occ_grid_lidar, lidar=True),
+                mesh=self.mesh)
         x = np.stack([sw["raydrop"], sw["intensity"], sw["depth"]], axis=1)
         y = scene.images_lidar[:, None, :, :, 0]
+        losses = []
         with self.timers.phase("refine unet"):
-            losses = refine_raydrop(self.unet, x, y, steps=steps, lr=lr,
-                                    log_fn=log_fn)
+            if self.is_main:
+                losses = refine_raydrop(self.unet, x, y, steps=steps, lr=lr,
+                                        log_fn=log_fn)
+            if self.mesh is not None:
+                replicate(self.mesh, [*self.unet.parameters(),
+                                      *self.unet.buffers()], "unet")
         self.unet_trained = True
         self.save_checkpoint(full=False, suffix="refine")
         return losses
@@ -714,13 +833,22 @@ class Trainer:
     # ------------------------------------------------------------------
     # checkpoints (``nvsf_tpu/train/trainer.py:924-964``)
     # ------------------------------------------------------------------
-    def save_checkpoint(self, full=True, best=False, suffix="") -> str:
+    def save_checkpoint(self, full=True, best=False,
+                        suffix="") -> Optional[str]:
         """A checkpoint in the JAX package's layout (``bridge.py``);
-        ``full`` adds the error maps and the Adam state."""
-        return ckpt.save_checkpoint(
-            self.workspace, self.name, self.epoch,
-            bridge.export_trainer_state(self, full), best=best,
-            suffix=suffix)
+        ``full`` adds the error maps and the Adam state. Under a mesh rank
+        0 writes it and returns its path, the other ranks None, each once
+        it is written."""
+        path = None
+        if self.is_main:
+            path = ckpt.save_checkpoint(
+                self.workspace, self.name, self.epoch,
+                bridge.export_trainer_state(self, full), best=best,
+                suffix=suffix)
+            self.checkpoints_written.append(path)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return path
 
     def load_checkpoint(self, which="latest",
                         prefer_refine: Optional[bool] = None) -> bool:

@@ -137,14 +137,8 @@ def test_mesh_export_matches_jax(fields, tmp_path):  # noqa: F811
 # the CLI
 # ----------------------------------------------------------------------
 
-def test_cli_train_then_test(tmp_path):
-    """Training (evals, checkpoints, a device trace of the first warm
-    epoch, the refine stage and the refined eval), then
-    ``--test --test_eval --use_refine`` from the refine checkpoint, on the
-    synthetic scene at toy sizes with the shipped config's grad_loss; the
-    artifacts of tests/test_cli.py and more."""
-    ws = tmp_path / "ws"
-    argv = ["--dataloader", "synthetic", "--path", "unused",
+def _toy_train_argv(ws):
+    return ["--dataloader", "synthetic", "--path", "unused",
             "--sequence_id", "syn", "--num_frames", "4", "--scale", "0.04",
             "--lidar_max_depth", "20", "--min_near_lidar", "0.5",
             "--intrinsics_lidar", "10.0", "40.0",
@@ -154,6 +148,16 @@ def test_cli_train_then_test(tmp_path):
             "--flow_max_resolution", "16", "--time_resolution", "4",
             "--workspace", str(ws), "--ckpt", "scratch", "--name", "smoke",
             "--refine_steps", "5"] + TOY
+
+
+def test_cli_train_then_test(tmp_path):
+    """Training (evals, checkpoints, a device trace of the first warm
+    epoch, the refine stage and the refined eval), then
+    ``--test --test_eval --use_refine`` from the refine checkpoint, on the
+    synthetic scene at toy sizes with the shipped config's grad_loss; the
+    artifacts of tests/test_cli.py and more."""
+    ws = tmp_path / "ws"
+    argv = _toy_train_argv(ws)
     tr = cli_main(argv + ["--profile_dir", str(tmp_path / "trace")],
                   device="cpu")
     assert [p for p in (tmp_path / "trace").rglob("*.json") if p.is_file()]
@@ -209,10 +213,58 @@ def test_cli_novel_sensor_test_on_mini_kitti(kitti_config):
     assert imageio.imread(res / depth_png).shape[:2] == (10, 32)
 
 
-def test_cli_refuses_data_parallel_and_missing_checkpoints(tmp_path):
-    with pytest.raises(NotImplementedError, match="A5, data parallel"):
-        cli_main(["--mesh_shape", "2", "--workspace", str(tmp_path)],
-                 device="cpu")
+def test_cli_mesh_shape_trains_on_two_ranks(tmp_path):
+    """``--mesh_shape 2`` on the CPU: two ranks over gloo train two epochs,
+    evaluate, refine and evaluate again; rank 0 alone writes each
+    checkpoint (once) and the log. The eval matrices match a single
+    process's run of the same argv to rtol 1e-4 (atol 1e-6): the ranks
+    draw the same batches and average gradients that differ from one
+    process's by f32 summation order (~3e-6 of their largest magnitude),
+    and each rank's marcher chunks its own rays; on this run the meters
+    differed by up to 1e-7 before the refine and 3e-5 (the refined
+    raydrop meter) after it."""
+    import json
+    runs = {}
+    for mode, extra in (("mesh", ["--mesh_shape", "2"]), ("single", [])):
+        ws = tmp_path / mode
+        runs[mode] = cli_main(_toy_train_argv(ws) + extra, device="cpu")
+    ranks, single = runs["mesh"], runs["single"]
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert all(r["epoch"] == 2 and r["has_unet"]
+               and r["global_step"] == single.global_step for r in ranks)
+    written = [os.path.basename(p) for p in ranks[0]["checkpoints"]]
+    assert sorted(written) == ["smoke_best.pkl", "smoke_ep0002.pkl",
+                               "smoke_refine.pkl"]
+    assert ranks[1]["checkpoints"] == []
+    assert sorted(os.listdir(tmp_path / "mesh" / "checkpoints")) \
+        == sorted(written)
+    assert ranks[0]["collectives"]["all_reduce grads"]["calls"] \
+        >= single.global_step
+    log = (tmp_path / "mesh" / "log_smoke.txt").read_text()
+    assert log.count("[epoch 2] loss=") == 1
+    for stem in ("smoke_ep0002", "smoke_ep0002_refined"):
+        got, ref = (json.loads((tmp_path / m / "validation" / f"{stem}"
+                                "_error_matrix_combined.json").read_text())
+                    for m in ("mesh", "single"))
+        assert set(got) == set(ref)
+        for k, v in ref.items():
+            if isinstance(v, (int, float, list)):
+                np.testing.assert_allclose(np.asarray(got[k], np.float64),
+                                           np.asarray(v, np.float64),
+                                           rtol=1e-4, atol=1e-6,
+                                           err_msg=f"{stem} {k}")
+
+
+def test_cli_refuses_more_ranks_than_cards_and_missing_checkpoints(
+        tmp_path, monkeypatch):
+    """A ``mesh_shape`` asking for more ranks than there are cards raises
+    before anything starts (the JAX package would take the first
+    devices); so does a test run without a checkpoint."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for spec in ("2", "2x2"):
+        with pytest.raises(ValueError, match="ranks, one to a card, and 1"):
+            cli_main(["--mesh_shape", spec, "--workspace", str(tmp_path)])
+    assert not os.listdir(tmp_path)
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         cli_main(["--dataloader", "synthetic", "--enable_lidar", "--test",
                   "--workspace", str(tmp_path), "--ckpt", "latest"] + TOY,

@@ -36,6 +36,8 @@ from nvsf_torch.data.synthetic import SyntheticSceneSpec, make_synthetic_scene
 from nvsf_torch.train.trainer import Trainer, make_optimizer, zero_nan_grads
 
 from test_torch_models import one_torch_thread  # noqa: F401
+from torch_mesh_ranks import (np_camera_rays, np_lidar_rays,
+                              torch_camera_rays, torch_lidar_rays)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = dict(num_frames=4, H_lidar=24, W_lidar=64, H=32, W=40,
@@ -172,32 +174,6 @@ def _check_error_map(em_old, em_new_ref, em_new, inds, err, H, W):
         assert np.isclose(cand, got[c], rtol=1e-5).any(), c
 
 
-def _np_lidar_rays(pose, inds, H, W, K, K_hoz):
-    fov_up, fov = K
-    j = (inds // W).astype(np.float32)
-    i = (inds % W).astype(np.float32)
-    beta = -(i - W / 2) / W * np.float32(K_hoz[1]) / 180 * np.float32(np.pi)
-    alpha = (np.float32(fov_up) - j / H * np.float32(fov)) / 180 \
-        * np.float32(np.pi)
-    d = np.stack([np.cos(alpha) * np.cos(beta), np.cos(alpha) * np.sin(beta),
-                  np.sin(alpha)], -1).astype(np.float32)
-    return _np_pose_rays(pose, d)
-
-
-def _np_camera_rays(pose, inds, H, W, K):
-    j = (inds // W).astype(np.float32) + 0.5
-    i = (inds % W).astype(np.float32) + 0.5
-    d = np.stack([(i - K[0, 2]) / K[0, 0], (j - K[1, 2]) / K[1, 1],
-                  np.ones_like(i)], -1).astype(np.float32)
-    return _np_pose_rays(pose, d / np.linalg.norm(d, axis=-1, keepdims=True))
-
-
-def _np_pose_rays(pose, d):
-    pose = np.asarray(pose, np.float32)
-    rd = (d @ pose[:3, :3].T).astype(np.float32)
-    return np.broadcast_to(pose[:3, 3], rd.shape).copy(), rd
-
-
 def _shared_rays(monkeypatch):
     """Both trainers take their rays from one numpy function (through a
     host callback in the JAX step): sin / cos differ by an ulp between the
@@ -216,18 +192,10 @@ def _shared_rays(monkeypatch):
                 (out, out), pose, inds, *args[2:])
         return call
 
-    def torch_side(np_fn):
-        def call(pose, inds, *args):
-            args = [a.numpy() if torch.is_tensor(a) else a for a in args]
-            ro, rd = np_fn(pose.numpy(), inds.numpy(), *args)
-            return torch.from_numpy(ro), torch.from_numpy(rd)
-        return call
-
-    monkeypatch.setattr(jrays, "get_lidar_rays", jax_side(_np_lidar_rays))
-    monkeypatch.setattr(jrays, "get_camera_rays", jax_side(_np_camera_rays))
-    monkeypatch.setattr(trays, "get_lidar_rays", torch_side(_np_lidar_rays))
-    monkeypatch.setattr(trays, "get_camera_rays",
-                        torch_side(_np_camera_rays))
+    monkeypatch.setattr(jrays, "get_lidar_rays", jax_side(np_lidar_rays))
+    monkeypatch.setattr(jrays, "get_camera_rays", jax_side(np_camera_rays))
+    monkeypatch.setattr(trays, "get_lidar_rays", torch_lidar_rays)
+    monkeypatch.setattr(trays, "get_camera_rays", torch_camera_rays)
 
 
 @pytest.mark.parametrize("patch", [True, False], ids=["patch", "random"])
