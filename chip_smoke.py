@@ -19,12 +19,18 @@ Phases, one line each:
                  after phase 5) hold B3 to them on the inputs of one
                  render slab of phase 5's field; its "uniform" rows (after
                  phase 8) hold B1, B3 and B4 to them on the inputs of one
-                 remat chunk of a dense step.
+                 remat chunk of a dense step. The inputs of these rows
+                 come from eager steps (use_scan=False): a captured step's
+                 tensors are static buffers that its next replay
+                 overwrites.
   4. slice    -- the joint LiDAR + camera training step (the bench.py
                  "joint-tuned" rung at full width on the synthetic scene):
                  Trainer.train_one_epoch for one random and one patch
-                 epoch, then timed steady-state steps and a torch.profiler
-                 breakdown of their device time by kernel family.
+                 epoch (the scanned epoch: each mode's step captured as a
+                 CUDA graph after two eager warm-ups, then replayed), then
+                 timed steady-state steps, eager and graphed in turns, and
+                 a torch.profiler breakdown of each one's device time by
+                 kernel family, its kernels a step and peak memory.
   5. eval     -- phase 4's field trained 6 more epochs and its occupancy
                  grids settled (bench.py's render rung), then evaluate() of
                  its trained parameters on the full-width val frame: the
@@ -52,7 +58,8 @@ Phases, one line each:
                  at phase 4's width: 768 samples a ray through the field,
                  the density query in 8 remat chunks. Timed random and
                  patch steps with a torch.profiler breakdown and the peak
-                 memory; one f32 step with 8 chunks and with 1, equal
+                 memory, eager and graphed (its capture time); one f32
+                 step with 8 chunks and with 1, equal
                  (B2 on the path); one dense chunk on the card and on the
                  CPU; evaluate() of the trained field, dense (B5 behind the
                  PointsMeter), the LiDAR frame render timed beside phase
@@ -70,23 +77,40 @@ Phases, one line each:
                  the separate step on one trainer: equal losses in bf16,
                  equal gradients in f32 (1e-5 of each gradient's max), and
                  each step's time, device time, kernels, busy share and
-                 peak memory, in turns. Phase 3's "joint" rows hold B1, B3
-                 and B4 on one fused step's inputs.
+                 peak memory, in turns, and the fused step graphed. Phase
+                 3's "joint" rows hold B1, B3 and B4 on one fused step's
+                 inputs.
  11. parallel -- ray-sharded data parallelism (nvsf_torch.parallel.mesh):
                  (a) two ranks on the one card over gloo, spawned from here,
                  at phase 4's width: one f32 step's gradients (the mean over
                  the ranks, before Adam) against one process's (1e-5 of
                  each gradient's max), 8 bf16 steps (a random and a patch
-                 epoch, two grid refreshes) after which every replicated
+                 epoch, two grid refreshes; use_scan=False, as gloo's
+                 collectives cannot be captured) after which every
+                 replicated
                  tensor is bit for bit equal on both ranks, the val frame
                  rendered sharded through evaluate() (B5 behind its
                  PointsMeter) against rank 0's render of it alone, the
                  collectives a step and the step time; (b) phase 7's argv
-                 through the CLI with --mesh_shape 1 (one rank over NCCL),
-                 2 epochs, raydrop threshold 0, the val evals and 20
+                 through the CLI with --mesh_shape 1 (one rank over NCCL,
+                 its step and collectives captured), 2 epochs, raydrop threshold 0, the val evals and 20
                  refine steps: each checkpoint written once, finite
                  error matrices; the
                  "parallel" launches are both runs' ranks'.
+ 12. graph    -- the captured step against the eager step, f32 at phase
+                 4's width: a trainer stepping through Trainer.scan_step
+                 (two eager warm-ups a mode, then replays) and a second one
+                 stepping eagerly, the second given the first's state and
+                 generator state before each step; 8 random steps (grid
+                 refreshes after steps 4 and 8) and 3 patch steps. Each
+                 step's loss, every gradient, the error-map rows and the
+                 refreshed grids agree within 1e-5 of each tensor's max;
+                 the learning rates a replay reads follow the schedule;
+                 the replays draw the eager step's rays, and consecutive
+                 replays different ones.
+
+Each phase prints when it is done, with its share of the script's 600 s
+target (half the 1200 s allowed).
 
 Any failure raises and the script exits non-zero. The line before the
 last is a JSON record of the kernels (B1 and B2, one kernel with a
@@ -117,6 +141,7 @@ from nvsf_torch.ops import chamfer
 from nvsf_torch.ops import kernels
 from nvsf_torch.ops import multihot as mh
 from nvsf_torch.ops import segsum
+from nvsf_torch.train.step_graph import WARMUP_STEPS
 
 # Relative error bound of an f32 sum, per unit of the sum of the magnitudes
 # of its terms: k additions in sequence round by at most k * 2^-24 of it,
@@ -134,6 +159,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 TRAIN_KERNELS = ("segment_add", "multihot_fwd", "multihot_bwd")
+
+# the script's own time target, half the 1200 s it is allowed
+TARGET_S = 600.0
 
 
 def bound(nbytes: float, flops: float):
@@ -742,16 +770,19 @@ def slice_scene():
     return spec, make_synthetic_scene(spec, split="train")
 
 
-def _time_steps(tr, patch, n=8, warmup=2):
+def _time_steps(tr, patch, n=8, warmup=2, graphed=False):
     """Medians over ``n`` steps of (wall ms of the synchronised step, host
-    ms until ``train_step`` returns). The step never synchronises with
-    the card, so the second is the host's dispatch of its kernels; when it
-    is close to the first, the host bounds the step."""
+    ms until the step returns), eager (``train_step``) or, with
+    ``graphed``, the scanned epoch's step (``scan_step``: replays of the
+    captured step). The step never synchronises with the card, so the
+    second is the host's dispatch of its kernels; when it is close to the
+    first, the host bounds the step."""
+    step = tr.scan_step if graphed else tr.train_step
     wall, host = [], []
     for i in range(warmup + n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = tr.train_step(i % len(tr.scene), patch)
+        m = step(i % len(tr.scene), patch)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -760,6 +791,15 @@ def _time_steps(tr, patch, n=8, warmup=2):
             wall.append((t2 - t0) * 1e3)
             host.append((t1 - t0) * 1e3)
     return float(np.median(wall)), float(np.median(host))
+
+
+def pool_gib(graphs) -> float:
+    """GiB held by the memory pool of a trainer's captured steps
+    (``StepGraphs``): the segments it owns, which the allocator's count of
+    allocated memory leaves out."""
+    pool = tuple(graphs.pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool) / 2**30
 
 
 def _relu_gates(mlp, gates=None):
@@ -944,31 +984,48 @@ def phase_slice(smi):
     assert not missing, f"kernels not launched by the step: {missing}"
 
     rays = cfg.num_rays_lidar + cfg.num_rays
+    sg = tr.step_graphs
+    assert sorted(sg.graphs) == [False, True], "the epochs captured no step"
+    log("slice", f"captured steps (use_scan=True): random "
+                 f"{sg.capture_s[False]:.2f} s, patch {sg.capture_s[True]:.2f}"
+                 f" s to capture; replays {sg.replays}")
     step_ms = {}
     for patch in (False, True):
         kind = "patch" if patch else "random"
-        runs = []
-        for rnd in (1, 2):      # back to back: the spread within one call
-            ms, host_ms = _time_steps(tr, patch, n=6, warmup=1)
-            runs.append(ms)
-            log("slice", f"steady-state {kind} step, round {rnd}: {ms:.1f} "
-                         f"ms = {rays / ms * 1e3:.0f} rays/s; host returns "
-                         f"after {host_ms:.1f} ms ({smi})")
-        ms = step_ms[kind] = float(np.median(runs))
-        fams, per_step = profile_device(
-            lambda i: tr.train_step(i % len(tr.scene), patch))
-        busy = sum(fams.values())
-        log("profile", f"{kind} step: device time {busy:.1f} ms in "
-                       f"{per_step} kernels; busy share "
-                       f"{busy / ms:.2f} of the unprofiled step")
-        for f, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
-            log("profile", f"  {kind} {f:22s} {ms:8.2f} ms/step")
+        # eager (use_scan=False) and graphed, in turns
+        for graphed in (False, True, True, False):
+            how = "graphed" if graphed else "eager"
+            ms, host_ms = _time_steps(tr, patch, n=6, warmup=1,
+                                      graphed=graphed)
+            step_ms.setdefault((kind, graphed), []).append(ms)
+            log("slice", f"steady-state {kind} step, {how}: {ms:.1f} ms = "
+                         f"{rays / ms * 1e3:.0f} rays/s; host returns after "
+                         f"{host_ms:.1f} ms ({smi})")
+        for graphed in (False, True):
+            how = "graphed" if graphed else "eager"
+            ms = float(np.median(step_ms[kind, graphed]))
+            torch.cuda.reset_peak_memory_stats()
+            step = tr.scan_step if graphed else tr.train_step
+            fams, per_step = profile_device(
+                lambda i: step(i % len(tr.scene), patch))
+            busy = sum(fams.values())
+            log("profile", f"{kind} step, {how}: {ms:.1f} ms (median of "
+                           f"{step_ms[kind, graphed]}); device time "
+                           f"{busy:.1f} ms in {per_step} kernels; busy "
+                           f"share {busy / ms:.2f} of the unprofiled step; "
+                           f"peak memory allocated "
+                           f"{torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                           f" GiB" + (f", the graphs' pool "
+                                      f"{pool_gib(sg):.2f} GiB"
+                                      if graphed else ""))
+            for f, fms in sorted(fams.items(), key=lambda kv: -kv[1]):
+                log("profile", f"  {kind} {how} {f:22s} {fms:8.2f} ms/step")
     flow_err, err, worst, gerr = check_against_cpu(tr.field)
     log("slice", f"trained field on the card vs the CPU plain path, the "
                  f"card on the CPU's ReLU gates: flow output {flow_err:.2e} "
                  f"of its max (tol 1e-4), density rel err {err:.2e}, worst "
                  f"gradient {worst} {gerr:.2e} of its max (tol 1e-3)")
-    return tr, launches, step_ms["random"]
+    return tr, launches, float(np.median(step_ms["random", False]))
 
 
 # ----------------------------------------------------------------------
@@ -1574,6 +1631,24 @@ def phase_uniform(smi, trained, stream):
                        f"the unprofiled step {took()}")
         for f, fms in sorted(fams.items(), key=lambda kv: -kv[1]):
             log("profile", f"  uniform {kind} {f:22s} {fms:8.2f} ms/step")
+    # the captured dense step (use_scan=True): its two eager warm-ups and
+    # the capture, then replays
+    torch.cuda.reset_peak_memory_stats()
+    ms_g, host_g = _time_steps(tr, False, n=2, warmup=WARMUP_STEPS + 1,
+                               graphed=True)
+    fams, per_step = profile_device(
+        lambda i: tr.scan_step(i % len(tr.scene), False), n=1, host=False)
+    busy = sum(fams.values())
+    log("profile", f"uniform random step, graphed: {ms_g:.1f} ms = "
+                   f"{rays / ms_g * 1e3:.0f} rays/s (host returns after "
+                   f"{host_g:.1f} ms); device time {busy:.1f} ms in "
+                   f"{per_step} kernels; busy share {busy / ms_g:.2f}; "
+                   f"capture {tr.step_graphs.capture_s[False]:.2f} s; peak "
+                   f"memory allocated "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                   f"the graph's pool "
+                   f"{pool_gib(tr.step_graphs):.2f} GiB ({smi}) "
+                   f"{took()}")
     step_launches = dict(kernels.LAUNCHES)
     log("uniform", f"peak memory of the steps (8 remat chunks) "
                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
@@ -2055,6 +2130,22 @@ def phase_joint(smi):
         log("joint", f"{'fused' if joint else 'separate'} step: {ms:.1f} ms"
                      f" = {rays / ms * 1e3:.0f} rays/s; host returns after "
                      f"{host_ms:.1f} ms")
+    # the fused step as the scanned epoch runs it: replays of the step the
+    # fused epoch captured
+    tr.joint = True
+    torch.cuda.reset_peak_memory_stats()
+    ms_g, host_g = _time_steps(tr, False, n=4, warmup=1, graphed=True)
+    fams, per_step = profile_device(
+        lambda i: tr.scan_step(i % len(tr.scene), False), n=2)
+    busy = sum(fams.values())
+    log("joint", f"fused step, graphed: {ms_g:.1f} ms = "
+                 f"{rays / ms_g * 1e3:.0f} rays/s (host returns after "
+                 f"{host_g:.1f} ms); device time {busy:.1f} ms in "
+                 f"{per_step} kernels; busy share {busy / ms_g:.2f}; capture "
+                 f"{tr.step_graphs.capture_s[False]:.2f} s; peak memory "
+                 f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                 f"GiB, the graph's pool "
+                 f"{pool_gib(tr.step_graphs):.2f} GiB ({smi})")
     for joint in (False, True):
         tr.joint = joint
         name = "fused" if joint else "separate"
@@ -2121,7 +2212,9 @@ def _parallel_epochs(tr):
         tr.epoch = ep
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = tr.train_one_epoch(order=order)
+        # gloo's collectives on CUDA tensors cannot be captured: the step
+        # path, here and in the single process it is held to
+        st = tr.train_one_epoch(order=order, use_scan=False)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3 / len(order))
         losses.append(st.loss)
@@ -2336,13 +2429,220 @@ def phase_parallel(smi, slice_step_ms, cli_step_ms):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 12: the captured step (use_scan=True) against the eager step
+# ----------------------------------------------------------------------
+
+# each replay's loss, gradients, error-map rows and refreshed grids against
+# the eager step's on the same state and draws, per tensor against its
+# largest magnitude: B1/B2 and B4's atomic sums change order between runs
+# (phase 11 saw 1.1e-6 between two processes' f32 gradients)
+GRAPH_RTOL = 1e-5
+
+
+def graph_config(spec):
+    """Phase 4's joint-tuned rung in f32 (the table gradients through B2)
+    with a grid refresh every 4 steps, so that phase 12's 8 random steps
+    cross two refreshes."""
+    return dataclasses.replace(joint_tuned_config(spec), fp16=False,
+                               occ_update_interval=4)
+
+
+@torch.no_grad()
+def _copy_step_state(src, dst):
+    """``src``'s parameters, Adam state, grids, error maps and generator
+    state into ``dst``'s tensors, in place: Adam's eps of 1e-15 turns an
+    atomic-order difference in a near-zero gradient into a parameter
+    difference the size of the learning rate, so each step starts the two
+    trainers from one state."""
+    for p, q in zip(src.field.parameters(), dst.field.parameters()):
+        q.copy_(p)
+        if p in src.optimizer.state:
+            for k, v in src.optimizer.state[p].items():
+                dst.optimizer.state[q][k].copy_(v)
+    for k in ("occ_grid_lidar", "occ_grid_rgb", "error_map",
+              "error_map_rgb"):
+        getattr(dst, k).copy_(getattr(src, k))
+    dst.generator.set_state(src.generator.get_state())
+
+
+def _rel_err(got, ref):
+    return float((got - ref).abs().max()) \
+        / max(float(ref.abs().max()), 1e-30)
+
+
+def _check_em_row(old, got, ref, inds, err, H, W):
+    """An error-map row written by a step against the eager step's: equal
+    (GRAPH_RTOL of the row's max) where one ray wrote a cell; where several
+    did, which write lands is unspecified, so each such cell must hold one
+    of its rays' values. Returns the worst error over the row's max."""
+    He, We = old.shape
+    ey = ((inds // W).to(torch.float32) * (He / H)).to(torch.int64)
+    ex = ((inds % W).to(torch.float32) * (We / W)).to(torch.int64)
+    cell = ey * We + ex
+    e = err.to(torch.float32)
+    e = (e - e.min()) / (e.max() - e.min() + torch.finfo(torch.float32).eps)
+    cand = 0.1 * old.reshape(-1)[cell] + 0.9 * (e * (1e3 - 1.0) + 1.0)
+    scale = float(ref.abs().max())
+    miss = (got.reshape(-1)[cell] - cand).abs()
+    best = torch.full((He * We,), float("inf"), device=old.device)
+    best.scatter_reduce_(0, cell, miss, "amin")
+    hits = torch.bincount(cell, minlength=He * We)
+    once = hits == 1
+    d = (got - ref).abs().reshape(-1)
+    worst = max(float(torch.where(once, d, 0.0).max()),
+                float(torch.where(hits > 1, best, 0.0).max()),
+                float(torch.where(hits == 0, d, 0.0).max()))
+    return worst / scale
+
+
+def phase_graph(smi):
+    """Phase 12: a trainer stepping through ``scan_step`` (its first two
+    steps of each mode eager warm-ups, then replays of the captured step)
+    against a second trainer stepping eagerly, both f32 at phase 4's width.
+    Before each step the eager one takes the graphed one's state; after it
+    their losses, every gradient, the error-map rows written and (after a
+    refresh) the grids must agree within GRAPH_RTOL of each tensor's max.
+    The order is 2 x occ_update_interval frames from global step 0, cut as
+    the scanned epoch cuts it, both refreshing after each dispatch; then 3
+    patch steps (two warm-ups and the patch capture). Also checks that the
+    learning-rate tensors a replay reads follow the schedule, that two
+    consecutive replays draw different rays and that the replay draws the
+    eager step's rays from the same generator state. Returns the launch
+    counts of the graphed trainer's steps."""
+    from nvsf_torch.data import sampler
+    from nvsf_torch.train.trainer import Trainer
+    spec, scene = slice_scene()
+    cfg = graph_config(spec)
+    t_phase = time.perf_counter()
+    g = Trainer(cfg, scene, seed=0, device="cuda")
+    e = Trainer(cfg, scene, seed=0, device="cuda")
+    with torch.no_grad():
+        # an empty half-space, so that a refresh changes what the step's
+        # compaction keeps (a grid read at a stale address would show)
+        G = cfg.occ_grid_size
+        for grid in (g.occ_grid_lidar, g.occ_grid_rgb):
+            grid[:, :, :G // 2 - 3] = 0.0
+    # the sampler's draws and the error-map inputs of every step, recorded
+    # by wrapping the module attributes the step calls; a capture records
+    # the graph's static buffers, which each replay overwrites
+    rec = {"inds": None, "em": None}
+    orig_si, orig_em = sampler.sample_indices, sampler.update_error_map
+
+    def si(*a, **k):
+        out = orig_si(*a, **k)
+        if rec["inds"] is not None:
+            rec["inds"].append(out)
+        return out
+
+    def em(row, inds, err, H, W):
+        if rec["em"] is not None:
+            rec["em"].append((row, inds, err, H, W))
+        return orig_em(row, inds, err, H, W)
+
+    static, prev_replay = {}, None
+    worst = {"loss": 0.0, "grad": 0.0, "em": 0.0, "grid": 0.0, "lr": 0.0}
+    kernels.reset_launch_counts()
+
+    def step(fi, patch):
+        nonlocal prev_replay
+        _copy_step_state(g, e)
+        lrs = [b * 0.1 ** min(g.global_step / max(cfg.iters, 1), 1.0)
+               for b in (cfg.lr, 0.1 * cfg.lr)]
+        for grp, lr in zip(g.optimizer.param_groups, lrs):
+            assert torch.is_tensor(grp["lr"]), "lr is not a device tensor"
+            worst["lr"] = max(worst["lr"], abs(float(grp["lr"]) - lr) / lr)
+        rec["inds"] = g_inds = []
+        mg = g.scan_step(fi, patch)
+        rec["inds"] = None
+        replay = patch in g.step_graphs.graphs
+        if replay and g_inds:               # captured (and replayed) now
+            static[patch] = g_inds
+        inds_g = [t.clone() for t in (static[patch] if replay else g_inds)]
+        g_grads = [p.grad.clone() for p in g.field.parameters()]
+        g_rows = [m[fi].clone() for m in (g.error_map, g.error_map_rgb)]
+        old = [m[fi].clone() for m in (e.error_map, e.error_map_rgb)]
+        rec["inds"], rec["em"] = e_inds, e_em = [], []
+        me = e.train_step(fi, patch)
+        rec["inds"] = rec["em"] = None
+        assert len(inds_g) == len(e_inds) and all(
+            torch.equal(a, b) for a, b in zip(inds_g, e_inds)), \
+            f"step {g.global_step}: the graphed step drew other rays than " \
+            "the eager step from the same generator state"
+        if replay and prev_replay is not None and prev_replay[0] == patch:
+            assert not all(torch.equal(a, b) for a, b in
+                           zip(prev_replay[1], inds_g)), \
+                "two consecutive replays drew the same rays"
+        prev_replay = (patch, inds_g) if replay else None
+        worst["loss"] = max(worst["loss"],
+                            _rel_err(mg["loss"], me["loss"]))
+        for k, v in me.items():
+            assert _rel_err(mg[k], v) <= GRAPH_RTOL, \
+                (g.global_step, k, float(mg[k]), float(v))
+        for (name, p), gg in zip(e.field.named_parameters(), g_grads):
+            r = _rel_err(gg, p.grad)
+            worst["grad"] = max(worst["grad"], r)
+            assert r <= GRAPH_RTOL, \
+                f"step {g.global_step}: gradient {name} {r:.3e} of its max"
+        for (row, inds, err, H, W), o, got in zip(e_em, old, g_rows):
+            ref = (e.error_map if H == scene.H_lidar else
+                   e.error_map_rgb)[fi]
+            r = _check_em_row(o, got, ref, inds, err, H, W)
+            worst["em"] = max(worst["em"], r)
+            assert r <= GRAPH_RTOL, \
+                f"step {g.global_step}: error-map row {fi} {r:.3e}"
+        return replay
+
+    sampler.sample_indices, sampler.update_error_map = si, em
+    replays = 0
+    try:
+        order = np.arange(2 * cfg.occ_update_interval) % len(scene)
+        g.epoch = e.epoch = 1
+        for chunk in g.dispatches(order, True):
+            for fi in chunk:
+                replays += step(int(fi), False)
+            _copy_step_state(g, e)
+            g.maybe_update_occ()
+            e.maybe_update_occ()
+            for k in ("occ_grid_lidar", "occ_grid_rgb"):
+                r = _rel_err(getattr(g, k), getattr(e, k))
+                worst["grid"] = max(worst["grid"], r)
+                assert r <= GRAPH_RTOL, f"{k} after the refresh: {r:.3e}"
+        assert g.occ_refresh_count == e.occ_refresh_count == 2
+        g.epoch = e.epoch = 2
+        for fi in range(3):
+            replays += step(fi, True)
+    finally:
+        sampler.sample_indices, sampler.update_error_map = orig_si, orig_em
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    sg = g.step_graphs
+    assert sorted(sg.graphs) == [False, True] and replays == 7, \
+        (sorted(sg.graphs), replays)
+    assert worst["lr"] <= 1e-6, f"learning rates off the schedule: {worst}"
+    log("graph", f"{replays} replays ({sg.replays}) against eager steps, "
+                 f"f32, 2048 + 2048 rays, refreshes at global steps 4 and "
+                 f"8: worst loss {worst['loss']:.2e}, gradient "
+                 f"{worst['grad']:.2e}, error-map row {worst['em']:.2e}, "
+                 f"grid {worst['grid']:.2e} of the tensor's max (tol "
+                 f"{GRAPH_RTOL:g}); lr {worst['lr']:.2e} off the schedule; "
+                 f"the replays drew the eager step's rays from the same "
+                 f"generator state, and consecutive replays other rays; "
+                 f"capture {sg.capture_s[False]:.2f} s random, "
+                 f"{sg.capture_s[True]:.2f} s patch; launches {launches}; "
+                 f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
     def done(phase):
-        log("time", f"{phase} done at {time.perf_counter() - t_start:.1f} s")
+        t = time.perf_counter() - t_start
+        log("time", f"{phase} done at {t:.1f} s ({t / TARGET_S:.0%} of the "
+                    f"{TARGET_S:.0f} s target)")
 
     smi = phase_card()
     phase_build()
@@ -2380,6 +2680,8 @@ def main():
     done("joint")
     parallel_launches = phase_parallel(smi, slice_step_ms, cli_step_ms)
     done("parallel")
+    graph_launches = phase_graph(smi)
+    done("graph")
     # B1 and B2 are one kernel with a precision flag: its rows and launches
     # split by precision
     rows["segment_add_f32"] = [r for r in rows["segment_add"]
@@ -2388,7 +2690,8 @@ def main():
                            if " f32 " not in r["variant"]]
     paths = {"train": train_launches, "eval": eval_launches,
              "cli": cli_launches, **uniform_paths, "kitti": kitti_launches,
-             "joint": joint_launches, "parallel": parallel_launches}
+             "joint": joint_launches, "parallel": parallel_launches,
+             "graph": graph_launches}
     for counts in paths.values():
         counts["segment_add"] -= counts["segment_add_f32"]
     record = []

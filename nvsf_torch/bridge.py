@@ -156,9 +156,12 @@ def _set_adam_state(trainer, step: int, exp_avg: dict, exp_avg_sq: dict):
     if set(exp_avg) != set(params) or set(exp_avg_sq) != set(params):
         raise KeyError("optimizer state does not match the field's "
                        "parameters")
+    # capturable Adam (on the card) keeps its step count on the device
+    capturable = trainer.optimizer.defaults.get("capturable", False)
     for k, p in params.items():
         trainer.optimizer.state[p] = {
-            "step": torch.tensor(float(step)),
+            "step": torch.tensor(float(step),
+                                 device=p.device if capturable else None),
             "exp_avg": torch.as_tensor(np.array(exp_avg[k]),
                                        device=p.device),
             "exp_avg_sq": torch.as_tensor(np.array(exp_avg_sq[k]),
@@ -201,7 +204,9 @@ def load_trainer_state(trainer, payload: dict) -> None:
     payload of either package (``model``, ``ema``, ``unet``, ...,
     ``opt_state_torch`` or optax's ``opt_state``) or a JAX
     ``Trainer.state`` (``params``, ``ema_params``, ``unet_params``, ...).
-    A ``global_step`` also sets the learning-rate schedule."""
+    A ``global_step`` also sets the learning-rate schedule. The trainer's
+    captured steps are dropped: they read the tensors this replaces."""
+    trainer.drop_step_graphs()
     model = payload.get("model", payload.get("params"))
     load_field(trainer.field, model)
     ema = payload.get("ema", payload.get("ema_params"))

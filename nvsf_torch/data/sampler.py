@@ -27,14 +27,17 @@ def _rand(draws, key, shape, generator, device):
 
 def _weighted_coarse(log_weights, k, generator, draws):
     """k coarse cells drawn in proportion to softmax(log_weights): without
-    replacement (Gumbel top-k) when k fits, else with replacement."""
+    replacement (Gumbel top-k) when k fits, else with replacement (the
+    inverse CDF of uniform draws; ``torch.multinomial`` would synchronise
+    with the host to check its weights)."""
     dev = log_weights.device
     n = log_weights.shape[0]
     if k > n:
         if draws is not None and "coarse" in draws:
             return draws["coarse"].to(dev).long()
-        p = torch.softmax(log_weights, dim=0)
-        return torch.multinomial(p, k, replacement=True, generator=generator)
+        cdf = torch.cumsum(torch.softmax(log_weights, dim=0), dim=0)
+        u = torch.rand((k,), generator=generator, device=dev) * cdf[-1]
+        return torch.searchsorted(cdf, u, right=True).clamp_max(n - 1)
     if draws is not None and "gumbel" in draws:
         g = draws["gumbel"].to(dev)
     else:

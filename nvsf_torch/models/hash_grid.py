@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from nvsf_torch.lib.constants import device_constant
 from nvsf_torch.ops.gather import table_gather
 
 _PRIMES = (1, 2654435761, 805459861, 3674653429)
@@ -102,11 +103,12 @@ class HashEncoding:
         dev = x.device
         offs = np.stack(np.meshgrid(*([np.arange(2)] * D), indexing="ij"),
                         axis=-1).reshape(-1, D)
-        offs = torch.as_tensor(offs, dtype=torch.int64, device=dev)  # [C, D]
-        res = torch.as_tensor(self.resolutions, dtype=torch.int64,
-                              device=dev)
-        dense = torch.as_tensor([(r + 1) ** D <= T for r in self.resolutions],
-                                device=dev)
+        offs = device_constant(tuple(map(tuple, offs.tolist())), torch.int64,
+                               dev)                          # [C, D]
+        res = device_constant(tuple(self.resolutions), torch.int64, dev)
+        dense = device_constant(
+            tuple((r + 1) ** D <= T for r in self.resolutions), torch.bool,
+            dev)
         level_offs = torch.arange(L, dtype=torch.int64, device=dev) * T
 
         pos = x.to(torch.float32)[:, None, :] \
@@ -247,7 +249,8 @@ class HashGrid4D(nn.Module):
     def _dynamic_cols_weights(self, x):
         cols_all, wcs, offset = [], [], 0
         for g, (a, b) in zip(self.dynamic_grids, self.PLANE_AXES):
-            cols, wc = g.grid.level_cols_weights(x[:, (a, b)])
+            cols, wc = g.grid.level_cols_weights(
+                torch.stack((x[:, a], x[:, b]), dim=-1))
             cols_all.append(cols + offset)
             wcs.append(wc)
             offset += g.grid.n_cols

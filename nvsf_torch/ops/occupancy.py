@@ -74,7 +74,11 @@ class OccupancyGrid:
                            for i in range(0, M, query_chunk)])
             sigma = s if sigma is None else torch.maximum(sigma, s)
         flat = grid.reshape(-1).clone()
-        flat[cells] = torch.maximum(flat[cells] * self.decay, sigma)
+        new = torch.maximum(flat[cells] * self.decay, sigma)
+        # a cell drawn twice takes the larger of its writes: one of them,
+        # as the reference leaves it, but the same one on every run (a
+        # plain scatter lands them in any order on the card)
+        flat.scatter_reduce_(0, cells, new, "amax", include_self=False)
         return flat.reshape(grid.shape)
 
     def occupied_at(self, grid, xyz, thresh):

@@ -12,12 +12,14 @@ occupancy grid, the streaming marcher ``run_occupancy_stream`` /
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field as dc_field
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from nvsf_torch.lib.constants import device_constant
 from nvsf_torch.models.field import NVSFField
 from nvsf_torch.ops.occupancy import OccupancyGrid
 
@@ -43,7 +45,13 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near=0.05):
 
 def linspace01(T: int, device=None) -> torch.Tensor:
     """linspace(0, 1, T) in f32 as XLA computes it: i * f32(1 / (T - 1)),
-    the last point exactly 1 (the compaction thresholds see every ulp)."""
+    the last point exactly 1 (the compaction thresholds see every ulp).
+    Made once per (T, device) (``lib/constants.py``): read only."""
+    return _linspace01(T, torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _linspace01(T: int, device: torch.device) -> torch.Tensor:
     z = torch.arange(T, dtype=torch.float32, device=device) \
         * torch.tensor(1.0 / (T - 1), dtype=torch.float32, device=device)
     z[-1] = 1.0
@@ -95,6 +103,25 @@ def stratified_segment_jitter(z_sel, sample_dist, T: int, K: int,
     return z_sel - w_l + u * (w_l + w_r)
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis, with the backward torch takes
+    when no factor is zero, (reversed cumsum of out * grad) / x. Torch's
+    own backward first asks the host whether any factor is zero, a
+    synchronisation that a captured step cannot hold; the compositing's
+    factors 1 - alpha + 1e-15 never are."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 @dataclass
 class Renderer:
     """Compositing settings around a field (``RendererSpec``)."""
@@ -120,9 +147,8 @@ class Renderer:
     slab_checks: int = dc_field(default=0, compare=False)
 
     def aabb(self, device):
-        b = self.bound
-        return torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32,
-                            device=device)
+        b = float(self.bound)
+        return device_constant((-b, -b, -b, b, b, b), torch.float32, device)
 
     def _occ_delta_cap(self, sample_dist, T, K):
         """clamp * sample_dist, or the legacy 2 * (T / K) * sample_dist."""
@@ -193,9 +219,9 @@ class Renderer:
         exponent = 2.0 if self.active_sensor else 1.0
         alphas = 1.0 - torch.exp(-exponent * deltas * self.density_scale
                                  * sigmas)
-        trans = torch.cumprod(
+        trans = _Cumprod.apply(
             torch.cat([torch.ones((N, 1), device=z_vals.device),
-                       1.0 - alphas + 1e-15], dim=-1), dim=-1)[:, :-1]
+                       1.0 - alphas + 1e-15], dim=-1))[:, :-1]
         weights = alphas * trans
 
         dirs = rays_d[:, None, :].expand(N, S, 3)

@@ -11,6 +11,7 @@ from typing import Callable, Dict
 import torch
 import torch.nn.functional as F
 
+from nvsf_torch.lib.constants import device_constant
 from nvsf_torch.ops.chamfer import chamfer_distance
 
 
@@ -94,7 +95,8 @@ def urf_line_of_sight_loss(weights, z_vals, gt_depth, global_step, iters):
     """Urban Radiance Fields line-of-sight loss: empty-space suppression
     outside gt +- eps plus a gaussian match inside, eps shrinking with
     training progress."""
-    eps = 0.02 * 0.1 ** min(global_step / iters, 1.0)
+    eps = 0.02 * torch.pow(
+        0.1, torch.clamp(torch.as_tensor(global_step) / iters, max=1.0))
     gt = gt_depth[:, None]
     depth_mask = gt > 0.0
     mask_empty = (z_vals < gt - eps) | (z_vals > gt + eps)
@@ -122,7 +124,7 @@ _SOBEL_Y = ((-1.0, -2.0, -1.0), (0.0, 0.0, 0.0), (1.0, 2.0, 1.0))
 def _conv2d_same(x, k):
     """x: [B, H, W]; k: 3x3 taps -> cross-correlation with zero padding
     (XLA's 'SAME' convolution)."""
-    w = torch.tensor(k, dtype=x.dtype, device=x.device)[None, None]
+    w = device_constant(k, x.dtype, x.device)[None, None]
     return F.conv2d(x[:, None], w, padding=1)[:, 0]
 
 

@@ -27,8 +27,8 @@ def run_epochs_with_recovery(trainer, first_epoch: int, last_epoch: int,
                              backoff_s: float = 30.0, log_fn=print):
     """Run trainer epochs first..last, ``on_epoch(epoch, stats)`` after
     each (eval and checkpoint hooks); on a recoverable failure, free the
-    card's cached memory and restart from the latest checkpoint (never
-    under the trainer's mesh). Each restart logs a line starting
+    card's cached memory (the trainer's captured steps dropped first) and
+    restart from the latest checkpoint (never under the trainer's mesh). Each restart logs a line starting
     ``[recovery]``."""
     restarts = 0
     ep = first_epoch
@@ -48,6 +48,8 @@ def run_epochs_with_recovery(trainer, first_epoch: int, last_epoch: int,
                        f"({type(err).__name__}); restart "
                        f"{restarts}/{max_restarts} in {backoff_s:.0f}s")
             time.sleep(backoff_s)
+            # the captured steps hold their memory pool: drop them first
+            trainer.drop_step_graphs()
             if torch.cuda.is_available():
                 torch.cuda.empty_cache()
             if trainer.load_checkpoint("latest"):

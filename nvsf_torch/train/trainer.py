@@ -19,7 +19,10 @@ branches render in one ``Renderer.run_joint`` pass, as there:
   - patch epochs every ``change_patch_size_epoch`` epochs (counted from
     1), error-map sampling on patch epochs only;
   - in occupancy mode, the occupancy grids refreshed by the host every
-    ``occ_update_interval`` steps, outside the step.
+    ``occ_update_interval`` steps, outside the step: between the scanned
+    epoch's dispatches (``train_one_epoch(use_scan=True)``, the default;
+    on the card each step replays a captured CUDA graph,
+    ``train/step_graph.py``), or after each step (``use_scan=False``).
 
 Every random draw of a step can be injected through ``draws`` (see
 ``loss_and_grads``), so tests can replay the JAX package's draws.
@@ -105,11 +108,24 @@ def compute_dtype_of(cfg: NVSFConfig) -> torch.dtype:
 def make_optimizer(cfg: NVSFConfig, field: NVSFField):
     """Adam(0.9, 0.99, eps 1e-15) with the slow group at 0.1x and the
     decay 0.1 ** min(step / iters, 1); call ``zero_nan_grads`` before each
-    step. Returns (optimizer, scheduler)."""
+    step. Returns (optimizer, scheduler).
+
+    On the card Adam is ``capturable`` with learning rates held in device
+    tensors, which the scheduler fills in place: a captured step
+    (``train/step_graph.py``) reads them at every replay. On the CPU it is
+    torch's default Adam (capturable Adam refuses CPU tensors)."""
     base, slow = field.lr_groups()
-    opt = torch.optim.Adam([{"params": base, "lr": cfg.lr},
-                            {"params": slow, "lr": 0.1 * cfg.lr}],
-                           betas=(0.9, 0.99), eps=1e-15)
+    dev = base[0].device
+    capturable = dev.type == "cuda"
+
+    def lr(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev) \
+            if capturable else v
+
+    opt = torch.optim.Adam([{"params": base, "lr": lr(cfg.lr)},
+                            {"params": slow, "lr": lr(0.1 * cfg.lr)}],
+                           betas=(0.9, 0.99), eps=1e-15,
+                           capturable=capturable)
     iters = max(cfg.iters, 1)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda s: 0.1 ** min(s / iters, 1.0))
@@ -135,6 +151,12 @@ class EpochStats:
 
 
 _SR_FLAGS = ("grad_norm_smooth", "spatial_smooth", "tv_loss", "grad_loss")
+
+
+def _row(t: torch.Tensor, fi: torch.Tensor) -> torch.Tensor:
+    """``t[fi]`` for a device scalar index, with no host synchronisation
+    (indexing by a 0-d tensor reads it on the host)."""
+    return t.index_select(0, fi.reshape(1))[0]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -257,6 +279,13 @@ class Trainer:
                 self.occ_grid_rgb = self.occ.init(dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self._order_rng = np.random.default_rng(seed)
+        # the step's frame index and global step as device scalars: the
+        # host fills them before each step, so a captured step reads them
+        # at every replay (``train/step_graph.py``)
+        self._fi = torch.zeros((), dtype=torch.int64, device=dev)
+        self._step_t = torch.zeros((), dtype=torch.int64, device=dev)
+        # the captured steps (on the card, made by the first scanned epoch)
+        self.step_graphs = None
         self.epoch = 0
         self.global_step = 0
         self.stats = {"results": [], "best_result": None}
@@ -278,6 +307,23 @@ class Trainer:
         self.checkpoints_written = []
         if mesh is not None:
             replicate(mesh, self.replicated_state().values())
+
+    @property
+    def global_step(self) -> int:
+        """Steps taken; mirrored into the device scalar the step reads."""
+        return self._global_step
+
+    @global_step.setter
+    def global_step(self, value: int) -> None:
+        self._global_step = int(value)
+        self._step_t.fill_(self._global_step)
+
+    def drop_step_graphs(self) -> None:
+        """Forget the captured steps (the next scanned epoch captures
+        anew): a graph reads every tensor at the address it had at
+        capture, and a load installs new error maps, grids and Adam
+        moments."""
+        self.step_graphs = None
 
     @property
     def is_main(self) -> bool:
@@ -357,20 +403,34 @@ class Trainer:
         return any(getattr(self.cfg, f) for f in _SR_FLAGS)
 
     def set_schedule(self, step: int) -> None:
-        """Put the learning-rate decay at ``step`` (a resumed run)."""
+        """Put the learning-rate decay at ``step`` (a resumed run); tensor
+        learning rates (capturable Adam) are filled in place."""
         sched = self.scheduler
         sched.last_epoch = step
         lrs = [base * fn(step)
                for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
         for group, lr in zip(self.optimizer.param_groups, lrs):
-            group["lr"] = lr
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
         sched._last_lr = lrs
 
     # ------------------------------------------------------------------
-    def loss_and_grads(self, fi: int, patch: bool,
-                       draws: Optional[dict] = None):
-        """Forward and backward of one step on frame ``fi``; leaves the
-        gradients in ``.grad``. Returns (loss, parts, error-map inputs).
+    def _frame_index(self, fi) -> torch.Tensor:
+        """A frame index as the device scalar the step reads: an int is
+        written into it, a tensor (the captured step's static input) is
+        the scalar itself."""
+        if torch.is_tensor(fi):
+            return fi
+        self._fi.fill_(int(fi))
+        return self._fi
+
+    def loss_and_grads(self, fi, patch: bool, draws: Optional[dict] = None):
+        """Forward and backward of one step on frame ``fi`` (an int, or the
+        int64 device scalar of the frame); leaves the gradients in
+        ``.grad``. Returns (loss, parts, error-map inputs). Nothing in it
+        synchronises with the host, so it can be captured.
 
         ``draws`` replaces the step's random draws: ``lidar_rays`` /
         ``rgb_rays`` (sampler draws), ``lidar_render`` / ``rgb_render``
@@ -382,6 +442,7 @@ class Trainer:
         in ``.grad`` are the whole batch's."""
         cfg, scene, data = self.cfg, self.scene, self.data
         dev, gen, rend = self.device, self.generator, self.renderer
+        fi = self._frame_index(fi)
         draws = draws or {}
         Hl, Wl = scene.H_lidar, scene.W_lidar
         H, W = scene.H, scene.W
@@ -392,7 +453,7 @@ class Trainer:
                              ("rgb_depth", "rgb_depth_loss"),
                              ("raydrop", "raydrop_loss"),
                              ("intensity", "intensity_loss"))}
-        t = data["times"][fi]
+        t = _row(data["times"], fi)
         parts, em_inputs = {}, {}
         total = torch.zeros((), device=dev)
 
@@ -400,22 +461,23 @@ class Trainer:
             inds = sampler.sample_indices(
                 Hl, Wl, cfg.num_rays_lidar,
                 patch_size=patch_hw if patch else 1,
-                error_map=self.error_map[fi] if use_em else None,
+                error_map=_row(self.error_map, fi) if use_em else None,
                 use_error_map=use_em, generator=gen,
                 draws=draws.get("lidar_rays"), device=dev)
             ro, rd = raylib.get_lidar_rays(
-                data["poses_lidar"][fi], inds, Hl, Wl,
+                _row(data["poses_lidar"], fi), inds, Hl, Wl,
                 scene.intrinsics_lidar, scene.intrinsics_hoz_lidar)
-            gt = data["panos_flat"][fi][inds]
+            gt = _row(data["panos_flat"], fi)[inds]
         if cfg.enable_rgb:
             inds_c = sampler.sample_indices(
                 H, W, cfg.num_rays, patch_size=cfg.patch_size,
-                error_map=self.error_map_rgb[fi] if use_em else None,
+                error_map=_row(self.error_map_rgb, fi) if use_em else None,
                 use_error_map=use_em, generator=gen,
                 draws=draws.get("rgb_rays"), device=dev)
-            ro_c, rd_c = raylib.get_camera_rays(data["poses"][fi], inds_c,
-                                                H, W, data["intrinsics"])
-            gt_rgb = data["images_flat"][fi][inds_c]
+            ro_c, rd_c = raylib.get_camera_rays(_row(data["poses"], fi),
+                                                inds_c, H, W,
+                                                data["intrinsics"])
+            gt_rgb = _row(data["images_flat"], fi)[inds_c]
             if cfg.color_space == "linear":
                 gt_rgb = torch.cat([srgb_to_linear(gt_rgb[..., :3]),
                                     gt_rgb[..., 3:]], dim=-1)
@@ -431,8 +493,8 @@ class Trainer:
         pc = None
         if cfg.flow_loss and self.pc_data is not None:
             gfi = torch.round(t * (cfg.num_frames - 1)).long()
-            pc = self.pc_data["pc"][gfi]
-            pcm = self.pc_data["pc_mask"][gfi]
+            pc = _row(self.pc_data["pc"], gfi)
+            pcm = _row(self.pc_data["pc_mask"], gfi)
 
         # each branch's rays and K, and its render draws at the batch's
         # full shape (a rank of a mesh draws what a single process does)
@@ -511,13 +573,14 @@ class Trainer:
                 pcd = self.pc_data
                 nxt = torch.clamp(gfi + 1, max=cfg.num_frames - 1)
                 prv = torch.clamp(gfi - 1, min=0)
-                has_next = (gfi < cfg.num_frames - 1) & pcd["pc_valid"][nxt]
-                has_prev = (gfi > 0) & pcd["pc_valid"][prv]
-                fwd = L.flow_consistency_loss(pc, pcm, pcd["pc"][nxt],
-                                              pcd["pc_mask"][nxt],
+                has_next = (gfi < cfg.num_frames - 1) \
+                    & _row(pcd["pc_valid"], nxt)
+                has_prev = (gfi > 0) & _row(pcd["pc_valid"], prv)
+                fwd = L.flow_consistency_loss(pc, pcm, _row(pcd["pc"], nxt),
+                                              _row(pcd["pc_mask"], nxt),
                                               fl["flow_forward"])
-                bwd = L.flow_consistency_loss(pc, pcm, pcd["pc"][prv],
-                                              pcd["pc_mask"][prv],
+                bwd = L.flow_consistency_loss(pc, pcm, _row(pcd["pc"], prv),
+                                              _row(pcd["pc_mask"], prv),
                                               fl["flow_backward"])
                 fl_loss = torch.where(has_next, fwd, 0.0) \
                     + torch.where(has_prev, bwd, 0.0)
@@ -525,7 +588,7 @@ class Trainer:
                 total = total + fl_loss
             if cfg.use_urf_loss:
                 urf = L.urf_line_of_sight_loss(out["weights"], out["z_vals"],
-                                               gt_depth, self.global_step,
+                                               gt_depth, self._step_t,
                                                cfg.iters)
                 parts["urf"] = urf
                 total = total + urf
@@ -542,7 +605,8 @@ class Trainer:
             parts["rgb"] = rgb_l.sum()
             total = total + rgb_l.sum()
             if cfg.use_rgbd_loss and "image_depths_flat" in data:
-                gt_d = data["image_depths_flat"][fi][inds_c] * cfg.scale
+                gt_d = _row(data["image_depths_flat"], fi)[inds_c] \
+                    * cfg.scale
                 max_d = 80 * cfg.scale
                 gt_d = torch.clamp(gt_d, max=max_d)
                 pd_c = torch.clamp(out_c["depth"], max=max_d)
@@ -590,7 +654,7 @@ class Trainer:
         cfg = self.cfg
         ph, pw = patch_hw
         shape = (cfg.num_rays_lidar // (ph * pw), ph, pw)
-        gmx, gmy = ((self.data[k][fi][inds].abs() < 0.05)
+        gmx, gmy = ((_row(self.data[k], fi)[inds].abs() < 0.05)
                     .to(torch.float32).reshape(shape)
                     for k in ("pano_gxx_flat", "pano_gyy_flat"))
         flags = {f: getattr(cfg, f) for f in _SR_FLAGS + (
@@ -602,61 +666,108 @@ class Trainer:
             (gt[:, 2] / cfg.scale).reshape(shape), gt[:, 0].reshape(shape),
             gmx, gmy, L.make_criterion(cfg.depth_grad_loss, cfg.scale), flags)
 
-    def train_step(self, fi: int, patch: bool,
+    def train_step(self, fi, patch: bool,
                    draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
-        """One optimizer step on frame ``fi``; returns detached scalar
-        metrics (no host synchronisation)."""
-        params = list(self.field.parameters())
+        """One optimizer step on frame ``fi``, eagerly; returns detached
+        scalar metrics (no host synchronisation)."""
+        metrics = self.step_body(self._frame_index(fi), patch, draws)
+        self.end_step()
+        return metrics
+
+    def step_body(self, fi: torch.Tensor, patch: bool,
+                  draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+        """What one captured step replays: gradients zeroed in place, the
+        forward and backward, NaN gradients zeroed, Adam, the error-map
+        rows of frame ``fi`` (the int64 device scalar). Under a mesh it
+        also all-reduces the gradients and broadcasts rank 0's rows."""
         self.optimizer.zero_grad(set_to_none=False)
         loss, parts, em_inputs = self.loss_and_grads(fi, patch, draws)
-        zero_nan_grads(params)
+        zero_nan_grads(self.field.parameters())
         self.optimizer.step()
-        self.scheduler.step()
         with torch.no_grad():
             scene = self.scene
-            if "lidar" in em_inputs:
-                inds, err = em_inputs["lidar"]
-                self.error_map[fi] = sampler.update_error_map(
-                    self.error_map[fi], inds, err, scene.H_lidar,
-                    scene.W_lidar)
-            if "rgb" in em_inputs:
-                inds, err = em_inputs["rgb"]
-                self.error_map_rgb[fi] = sampler.update_error_map(
-                    self.error_map_rgb[fi], inds, err, scene.H, scene.W)
-            if self.mesh is not None:
-                # duplicate cells of the batch take any of their writes
-                replicate(self.mesh, [em[fi] for em in (
-                    self.error_map, self.error_map_rgb) if em is not None],
-                    "error map")
-        self.global_step += 1
+            for key, em, H, W in (("lidar", self.error_map, scene.H_lidar,
+                                   scene.W_lidar),
+                                  ("rgb", self.error_map_rgb, scene.H,
+                                   scene.W)):
+                if key not in em_inputs:
+                    continue
+                inds, err = em_inputs[key]
+                row = sampler.update_error_map(_row(em, fi), inds, err, H, W)
+                if self.mesh is not None:
+                    # duplicate cells of the batch take any of their writes
+                    replicate(self.mesh, [row], "error map")
+                em.index_copy_(0, fi.reshape(1), row[None])
         return {"loss": loss, **parts}
 
+    def end_step(self) -> None:
+        """The host's part of a step, after its device work: the schedule
+        moves on (filling capturable Adam's learning rates in place) and
+        ``global_step`` counts the step."""
+        self.scheduler.step()
+        self.global_step += 1
+
     # ------------------------------------------------------------------
-    def train_one_epoch(self, order=None) -> EpochStats:
+    def train_one_epoch(self, order=None, use_scan: bool = True) -> EpochStats:
         """One pass over ``order`` (default: a seeded permutation of the
         frames); a patch epoch when ``epoch`` is a positive multiple of
         ``change_patch_size_epoch``. With ``cfg.profile_dir`` the first
-        warm epoch (epoch 2, or 1 when there is one) is traced there."""
+        warm epoch (epoch 2, or 1 when there is one) is traced there.
+
+        ``use_scan`` (the default) is the JAX package's scanned epoch
+        (``nvsf_tpu/train/trainer.py:694-736``): in occupancy mode an
+        epoch longer than ``occ_update_interval`` runs in dispatches of
+        that many steps counted from its start, the grids refreshed only
+        between them; a shorter one, or any epoch without grids, is one
+        dispatch. On the card each step of a dispatch replays a captured
+        CUDA graph (``train/step_graph.py``); on the CPU it runs eagerly.
+        ``use_scan=False`` is its step path: every step eager, the refresh
+        checked after each."""
         trace = None
         if (self.cfg.profile_dir and not self._profiled
                 and self.epoch >= min(self.cfg.epochs, 2)):
             self._profiled = True
             trace = self.cfg.profile_dir if self.is_main else None
         with self.timers.phase("train epoch"), device_trace(trace):
-            return self._train_one_epoch(order)
+            return self._train_one_epoch(order, use_scan)
 
-    def _train_one_epoch(self, order=None) -> EpochStats:
+    def dispatches(self, order: np.ndarray, use_scan: bool):
+        """The epoch's frame order cut where the grids may refresh: fixed
+        chunks of ``occ_update_interval`` from the epoch's start when it is
+        longer (the scanned epoch), one chunk otherwise, or one step a
+        chunk (``use_scan=False``)."""
+        if not use_scan:
+            return [order[i:i + 1] for i in range(len(order))]
+        n = self.cfg.occ_update_interval if self.occ is not None else 0
+        if n > 0 and len(order) > n:
+            return [order[i:i + n] for i in range(0, len(order), n)]
+        return [order]
+
+    def scan_step(self, fi: int, patch: bool) -> Dict[str, torch.Tensor]:
+        """One step of a scanned epoch: a replay of the captured step on
+        the card (its metrics are the graph's static outputs, overwritten
+        by the next replay), an eager step on the CPU."""
+        if self.device.type != "cuda":
+            return self.train_step(int(fi), patch)
+        if self.step_graphs is None:
+            from nvsf_torch.train.step_graph import StepGraphs
+            self.step_graphs = StepGraphs(self)
+        return self.step_graphs.step(int(fi), patch)
+
+    def _train_one_epoch(self, order=None, use_scan=True) -> EpochStats:
         cfg = self.cfg
         if order is None:
             order = self._order_rng.permutation(len(self.scene))
         order = np.asarray(order, np.int64)
         use_patch = (self.patch_enabled() and self.epoch > 0
                      and self.epoch % cfg.change_patch_size_epoch == 0)
+        step = self.scan_step if use_scan else self.train_step
         sums = {}
-        for fi in order:
-            metrics = self.train_step(int(fi), use_patch)
-            for k, v in metrics.items():
-                sums[k] = sums[k] + v if k in sums else v
+        for chunk in self.dispatches(order, use_scan):
+            for fi in chunk:
+                metrics = step(int(fi), use_patch)
+                for k, v in metrics.items():
+                    sums[k] = sums[k] + v if k in sums else v.clone()
             self.maybe_update_occ()
         with torch.no_grad():
             decay = cfg.ema_decay
@@ -722,7 +833,8 @@ class Trainer:
             grid = getattr(self, f"occ_grid_{branch}")
             if grid is None:
                 continue
-            setattr(self, f"occ_grid_{branch}", self.occ.update(
+            # in place: a captured step reads the grid at its address
+            grid.copy_(self.occ.update(
                 grid, lambda p, tt, lidar=lidar: self.field.density(
                     p, tt, cal_lidar_color=lidar, skip_warp=True)["sigma"],
                 ts, generator=generator))

@@ -317,7 +317,10 @@ def test_recovery_resumes_from_the_latest_checkpoint():
         assert not is_recoverable(err), err
 
     class Stub:
-        epoch, failed, loads = 0, False, 0
+        epoch, failed, loads, drops = 0, False, 0, 0
+
+        def drop_step_graphs(self):
+            self.drops += 1
 
         def train_one_epoch(self):
             if self.epoch == 3 and not self.failed:
@@ -333,7 +336,7 @@ def test_recovery_resumes_from_the_latest_checkpoint():
     tr = Stub()
     run_epochs_with_recovery(tr, 1, 4, lambda ep, st: seen.append(ep),
                              backoff_s=0.0, log_fn=None)
-    assert seen == [1, 2, 3, 4] and tr.loads == 1
+    assert seen == [1, 2, 3, 4] and tr.loads == 1 and tr.drops == 1
     tr.train_one_epoch = lambda: (_ for _ in ()).throw(ValueError("bug"))
     with pytest.raises(ValueError):
         run_epochs_with_recovery(tr, 1, 2, lambda e, s: None, backoff_s=0.0,

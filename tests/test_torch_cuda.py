@@ -243,3 +243,109 @@ def test_training_step_launches_every_kernel(dev):
     assert kernels.LAUNCHES["chamfer_min_dist"] >= 2
     assert kernels.LAUNCHES["multihot_fwd"] > 0
     assert kernels.LAUNCHES["segment_add"] == 0
+
+
+# ----------------------------------------------------------------------
+# the captured step (train/step_graph.py) against the eager step
+# ----------------------------------------------------------------------
+
+def _graph_pair(interval=2):
+    """Two toy f32 occupancy trainers from one seed, their grids with an
+    empty half-space (a refresh then changes what the compaction keeps)."""
+    from nvsf_torch.config import NVSFConfig
+    from nvsf_torch.data.synthetic import (SyntheticSceneSpec,
+                                           make_synthetic_scene)
+    from nvsf_torch.train.trainer import Trainer
+
+    spec = SyntheticSceneSpec(num_frames=5, H_lidar=24, W_lidar=64, H=32,
+                              W=40, max_depth=80.0, scale=1 / 81)
+    s = spec.scale
+    cfg = NVSFConfig.from_dict(dict(
+        enable_lidar=True, enable_rgb=True, num_frames=5, scale=s, bound=1.0,
+        min_near_lidar=s, lidar_max_depth=80 * s, min_near=s,
+        active_sensor=True, num_rays=256, num_rays_lidar=256, num_steps=64,
+        num_steps_occ=32, render_mode="occupancy", log2_hashmap_size=14,
+        n_levels_hash=4, n_features_per_level_hash=8, flow_n_levels=4,
+        iters=100, flow_loss=True, use_urf_loss=True, use_error_map=True,
+        occ_grid_size=32, occ_update_interval=interval))
+    scene = make_synthetic_scene(spec)
+    g, e = Trainer(cfg, scene), Trainer(cfg, scene)
+    with torch.no_grad():
+        for grid in (g.occ_grid_lidar, g.occ_grid_rgb):
+            grid[:, :, :12] = 0.0
+    return g, e
+
+
+@torch.no_grad()
+def _sync_state(src, dst):
+    for p, q in zip(src.field.parameters(), dst.field.parameters()):
+        q.copy_(p)
+        for k, v in src.optimizer.state.get(p, {}).items():
+            dst.optimizer.state[q][k].copy_(v)
+    for k in ("occ_grid_lidar", "occ_grid_rgb", "error_map",
+              "error_map_rgb"):
+        getattr(dst, k).copy_(getattr(src, k))
+    dst.generator.set_state(src.generator.get_state())
+
+
+def test_replayed_steps_match_eager_steps_across_a_refresh(dev):
+    """Five f32 steps of one trainer through ``scan_step`` (two eager
+    warm-ups, the capture, two replays) against eager steps of a second
+    trainer on the same state and generator state: equal losses and
+    gradients (1e-5 of each gradient's max: B1/B2 and B4 sum by atomics),
+    a grid refresh between the replays read by the next one, launches
+    counted per replay."""
+    from nvsf_torch.train.step_graph import WARMUP_STEPS
+    g, e = _graph_pair()
+    counts = {"g": {}, "e": {}}
+
+    def counted(who, fn, *args):
+        kernels.reset_launch_counts()
+        out = fn(*args)
+        for k, n in kernels.LAUNCHES.items():
+            counts[who][k] = counts[who].get(k, 0) + n
+        return out
+
+    for i, fi in enumerate((0, 1, 2, 3, 0)):
+        _sync_state(g, e)
+        mg = counted("g", g.scan_step, fi, False)
+        me = counted("e", e.train_step, fi, False)
+        for k, v in me.items():
+            assert abs(float(mg[k]) - float(v)) <= 1e-5 * abs(float(v)), k
+        for p, q in zip(e.field.parameters(), g.field.parameters()):
+            _close(q.grad, p.grad, p.grad)
+        if i % 2 == 1:       # the refresh of interval 2, after steps 2 and 4
+            _sync_state(g, e)
+            g.maybe_update_occ()
+            e.maybe_update_occ()
+            assert torch.equal(g.occ_grid_lidar, e.occ_grid_lidar)
+    sg = g.step_graphs
+    assert list(sg.graphs) == [False] and sg.replays[False] == 5 - WARMUP_STEPS
+    assert g.occ_refresh_count == 2 and g.global_step == 5
+    # a replay counts the launches its capture recorded
+    assert counts["g"] == counts["e"] and counts["g"]["multihot_bwd"] > 0, \
+        counts
+
+
+def test_load_checkpoint_drops_the_captured_steps(dev, tmp_path):
+    """A load replaces the error maps, grids and Adam moments, so it drops
+    the captured steps; the next scanned epoch captures anew and resumes
+    the schedule, Adam's step count on the card."""
+    g, _ = _graph_pair(interval=16)
+    g.cfg.workspace = g.workspace = str(tmp_path)
+    g.epoch = 1
+    g.train_one_epoch(order=[0, 1, 2, 3])
+    assert g.step_graphs is not None and False in g.step_graphs.graphs
+    g.save_checkpoint(full=True)
+    g.global_step = 0
+    assert g.load_checkpoint("latest")
+    assert g.step_graphs is None and g.global_step == 4
+    p = next(g.field.parameters())
+    assert g.optimizer.state[p]["step"].is_cuda
+    assert int(g.optimizer.state[p]["step"]) == 4
+    g.epoch = 3
+    st = g.train_one_epoch(order=[0, 1, 2, 3])
+    assert np.isfinite(st.loss) and False in g.step_graphs.graphs
+    assert g.global_step == 8
+    lr = g.optimizer.param_groups[0]["lr"]
+    assert abs(float(lr) - g.cfg.lr * 0.1 ** (8 / 100)) <= 1e-6 * g.cfg.lr

@@ -143,6 +143,24 @@ def epoch(mesh, cfg, spec, order):
     return out
 
 
+def scan_refreshes(mesh, cfg, spec, steps, epochs):
+    """``epochs`` scanned epochs (``use_scan=True``) of frames
+    0..steps-1 -> the global steps at which the grids refreshed."""
+    tr = _trainer(mesh, cfg, spec)
+    seen = []
+    refresh = tr.refresh_occupancy
+
+    def record(generator):
+        seen.append(tr.global_step)
+        refresh(generator)
+
+    tr.refresh_occupancy = record
+    for ep in range(1, epochs + 1):
+        tr.epoch = ep
+        tr.train_one_epoch(order=np.arange(steps), use_scan=True)
+    return seen
+
+
 def sweep(mesh, cfg, spec, state, fis):
     """LiDAR frames ``fis`` through ``render_lidar_sweep`` (the occupancy
     marcher) on rays from numpy."""
