@@ -1,6 +1,7 @@
 """Quickest proof that the PyTorch port runs on an NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase render    # phase 13 alone (~3 min)
 
 Phases, one line each:
   1. card     -- a CUDA device is present; prints nvidia-smi's name and
@@ -34,12 +35,15 @@ Phases, one line each:
   5. eval     -- phase 4's field trained 6 more epochs and its occupancy
                  grids settled (bench.py's render rung), then evaluate() of
                  its trained parameters on the full-width val frame: the
-                 streaming occupancy marcher, the meters (B5 behind the
-                 PointsMeter), the JSON error matrices; the LiDAR frame
-                 render timed; one chunk of rays rendered on the card and
-                 on the CPU and compared; B5 against its plain version on
-                 that render and its ground truth; one frame rendered from
-                 the EMA parameters, evaluate's default.
+                 streaming occupancy marcher, each frame a replay of the
+                 renderer's frame graphs (render/frame_graph.py), the
+                 meters (B5 behind the PointsMeter), the JSON error
+                 matrices, no host read between slabs; the graphed LiDAR
+                 frame timed and profiled; one chunk of rays rendered on
+                 the card and on the CPU and compared; B5 against its plain
+                 version on that render and its ground truth; one frame
+                 rendered from the EMA parameters, evaluate's default.
+                 Phase 13 runs next, on this field.
   6. learning -- the small convergence drive of the verify notes (8
                  epochs, 4 frames) must cut the loss below 0.7x.
   7. cli      -- configs/kitti360_1908.txt through the port's CLI
@@ -61,10 +65,10 @@ Phases, one line each:
                  memory, eager and graphed (its capture time); one f32
                  step with 8 chunks and with 1, equal
                  (B2 on the path); one dense chunk on the card and on the
-                 CPU; evaluate() of the trained field, dense (B5 behind the
-                 PointsMeter), the LiDAR frame render timed beside phase
-                 5's marcher; the convergence drive of phase 6 in uniform
-                 mode.
+                 CPU; evaluate() of the trained field, dense and graphed
+                 (B5 behind the PointsMeter), the LiDAR frame render timed
+                 beside phase 5's marcher; the convergence drive of phase 6
+                 in uniform mode.
   9. kitti    -- raw KITTI-360 to a scored field with the port alone: a raw
                  tree of sequence 1908 (calibration, poses, 64 HDL-64E-like
                  Velodyne sweeps, camera PNGs at 1/4 size, a 3D box XML)
@@ -108,13 +112,31 @@ Phases, one line each:
                  the learning rates a replay reads follow the schedule;
                  the replays draw the eager step's rays, and consecutive
                  replays different ones.
+ 13. render   -- (run after phase 5, on its settled field) the frame
+                 renders as CUDA graphs against the eager renders on the
+                 card (Renderer.render_eager: the same kernels, every slab
+                 gated on the device): the LiDAR and camera frames,
+                 occupancy and dense, from the live and the EMA renderer,
+                 each output within 1e-6 of its max, the same slabs run;
+                 a LiDAR frame at another pose and time replayed under
+                 set_sync_debug_mode("error"); a grid emptied in place read
+                 by the next replay; rays/s graphed and eager, slabs run
+                 against 36 x 6, capture times, each capture's growth of
+                 the pools that both renderers' graphs share, and the
+                 pools; a replay's B3 launches (counted on the device in
+                 the IF bodies that ran) against the eager frame's per
+                 slab; a training epoch with the render pools resident,
+                 its peak memory. Phase 3's "graph_if" row holds the IF
+                 node (csrc/graph_cond.cu) to the gated update.
 
 Each phase prints when it is done, with its share of the script's 600 s
 target (half the 1200 s allowed).
 
 Any failure raises and the script exits non-zero. The line before the
 last is a JSON record of the kernels (B1 and B2, one kernel with a
-precision flag, as two entries); the last is
+precision flag, as two entries; "graph_if", the IF node's kernel, which
+replaces no Pallas kernel but the condition of a lax.while_loop); the
+last is
 {"ok": true, "device": {...}}. Needs one GPU and nvcc; imports no JAX.
 """
 
@@ -607,7 +629,53 @@ KERNELS = [
      "nvsf_tpu/ops/multihot.py:47"),
     ("chamfer_min_dist", "nvsf_torch/csrc/chamfer.cu",
      "nvsf_tpu/ops/chamfer_pallas.py:32"),
+    # not a Pallas kernel: the condition of the marcher's lax.while_loop
+    # (slab_cond), which the frame graphs' IF nodes decide on the device
+    ("graph_if", "nvsf_torch/csrc/graph_cond.cu",
+     "nvsf_tpu/render/renderer.py:624"),
 ]
+
+
+def check_graph_if(gen, dev, n=216):
+    """The IF node (``frame_graph.if_node``: the kernel that sets a
+    conditional node from a device bool, and the node) against its plain
+    version, the gated update the eager marcher makes: a graph of ``n`` IF
+    nodes (36 chunks x 6 slabs, a LiDAR frame's), each adding one to its
+    own counter where its own bool holds, replayed on two draws of random
+    bools against torch.where(pred, x + 1, x). Times per node: a replay
+    over ``n``, and the plain version's ``n`` gated updates over ``n``; the
+    bound is the one byte each node reads."""
+    from nvsf_torch.render.frame_graph import if_node
+    preds = torch.zeros(n, dtype=torch.bool, device=dev)
+    x = torch.zeros(n, dtype=torch.int64, device=dev)
+    body_stream, body_pool = torch.cuda.Stream(dev), torch.cuda.MemPool()
+    side = torch.cuda.Stream(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        for i in range(n):
+            with if_node(preds[i], body_stream, body_pool):
+                x[i:i + 1].add_(1)
+    err = 0
+    for _ in range(2):
+        preds.copy_(torch.rand(n, generator=gen, device=dev) < 0.5)
+        x.zero_()
+        graph.replay()
+        ref = torch.where(preds, 1, 0)
+        err = max(err, int((x - ref).abs().max()))
+    ms = cuda_ms(graph.replay) / n
+
+    def plain():
+        for i in range(n):
+            x[i:i + 1].copy_(torch.where(preds[i], x[i:i + 1] + 1,
+                                         x[i:i + 1]))
+
+    plain_ms = cuda_ms(plain, reps=3) / n
+    b_ms, b_by = bound(1, 0)
+    # counts: any difference is a whole count, so tol 0.5 asks for equality
+    return [dict(variant=f"{n} IF nodes, one bool each", max_abs_err=err,
+                 tol=0.5, ok=err == 0, ms=ms, plain_ms=plain_ms,
+                 library_ms=None, bound_ms=b_ms, bound_by=b_by)]
 
 
 def _fmt_ms(v):
@@ -647,7 +715,8 @@ def phase_kernels():
     fwd, bwd = check_multihot(gen, dev)
     rows = {"segment_add": check_segment_add(gen, dev),
             "multihot_fwd": fwd, "multihot_bwd": bwd,
-            "chamfer_min_dist": check_chamfer(gen, dev)}
+            "chamfer_min_dist": check_chamfer(gen, dev),
+            "graph_if": check_graph_if(gen, dev)}
     report_kernels(rows)
     return rows
 
@@ -793,11 +862,11 @@ def _time_steps(tr, patch, n=8, warmup=2, graphed=False):
     return float(np.median(wall)), float(np.median(host))
 
 
-def pool_gib(graphs) -> float:
-    """GiB held by the memory pool of a trainer's captured steps
-    (``StepGraphs``): the segments it owns, which the allocator's count of
-    allocated memory leaves out."""
-    pool = tuple(graphs.pool)
+def pool_gib(pool) -> float:
+    """GiB held by a memory pool (of the captured steps, ``StepGraphs``,
+    or of the frame graphs): the segments it owns, which the allocator's
+    count of allocated memory leaves out."""
+    pool = tuple(pool)
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if tuple(seg.get("segment_pool_id", ())) == pool) / 2**30
 
@@ -968,7 +1037,7 @@ def phase_slice(smi):
                      f" loss {st.loss:.5f} in {time.perf_counter() - t0:.1f} "
                      "s; " + " ".join(f"{k}={v:.4g}" for k, v in
                                       st.parts.items() if k != "loss"))
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     log("slice", f"launches {launches}; occupancy refreshes "
                  f"{tr.occ_refresh_count}; peak memory "
                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1016,7 +1085,7 @@ def phase_slice(smi):
                            f"peak memory allocated "
                            f"{torch.cuda.max_memory_allocated() / 2**30:.2f}"
                            f" GiB" + (f", the graphs' pool "
-                                      f"{pool_gib(sg):.2f} GiB"
+                                      f"{pool_gib(sg.pool):.2f} GiB"
                                       if graphed else ""))
             for f, fms in sorted(fams.items(), key=lambda kv: -kv[1]):
                 log("profile", f"  {kind} {how} {f:22s} {fms:8.2f} ms/step")
@@ -1085,7 +1154,7 @@ def check_ema_render(tr):
     before = snapshot()
     kernels.reset_launch_counts()
     out = tr.render_lidar_frame(0, use_ema=True)
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     bad = [k for k, v in out.items() if not np.isfinite(v).all()]
     assert not bad, f"non-finite EMA render: {bad}"
     after = snapshot()
@@ -1112,8 +1181,9 @@ def _frame_rays(tr, stride):
 
 def profile_render(tr, stride=8):
     """Device time by kernel family of a render of every 8th ray of the
-    frame (a whole frame is ~10^6 profiler events), and its unprofiled wall
-    time: ({family: ms}, kernels, wall ms, rays)."""
+    frame (a whole frame is ~10^6 profiler events), a replay of the frame
+    graphs (the first call captures them), and its unprofiled wall time:
+    ({family: ms}, kernels, wall ms, rays)."""
     ro, rd, t = _frame_rays(tr, stride)
     dev = tr.device
     ro, rd, t = ro.to(dev), rd.to(dev), torch.tensor(t, device=dev)
@@ -1171,7 +1241,7 @@ def check_stream_against_cpu(tr, n=4096):
         return rend.run_occupancy_stream(
             ro, rd, t, kw["occ"], kw["occ_grid"].to(ro.device),
             num_steps_occ=kw["num_steps_occ"], cal_lidar_color=True,
-            occ_thresh=kw["occ_thresh"])
+            occ_thresh=kw["occ_thresh"], slab=tr.renderer.stream_slab)
 
     return _render_card_vs_cpu(tr, n, render, "stream render")
 
@@ -1179,7 +1249,7 @@ def check_stream_against_cpu(tr, n=4096):
 def capture_eval_inputs(tr, n_rays=2048):
     """The inputs of B3's launches in the first slab of one render chunk:
     ``n_rays`` LiDAR rays spread over training frame 0 through the
-    streaming marcher, whose slabs of 16 samples give each segment
+    streaming marcher, eagerly, whose slabs of 16 samples give each segment
     n_rays x 16 samples (the static planes, Q 1 x S 6, and the dynamic
     ones at the three times of the warp, Q 3 x S 12). The forward's wrapper
     is looked up as a module attribute at call time
@@ -1200,11 +1270,14 @@ def capture_eval_inputs(tr, n_rays=2048):
 
     mh.multihot_fwd_cuda = fwd
     try:
-        tr.renderer.run_occupancy_stream(
+        # eagerly (every slab gated on the device): a capture's tensors
+        # hold no values
+        tr.renderer.stream_batch(
             ro[:n_rays].to(dev), rd[:n_rays].to(dev),
             torch.tensor(t, device=dev), kw["occ"], kw["occ_grid"],
             num_steps_occ=kw["num_steps_occ"], cal_lidar_color=True,
-            occ_thresh=kw["occ_thresh"])
+            bg_color=None, occ_thresh=kw["occ_thresh"],
+            slab=tr.renderer.stream_slab, trans_eps=1e-4, skip_warp=False)
         torch.cuda.synchronize()
     finally:
         mh.multihot_fwd_cuda = orig
@@ -1238,6 +1311,8 @@ def phase_eval(tr, smi):
     shutil.rmtree(EVAL_DIR, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     checks0 = tr.renderer.slab_checks
+    slabs = tr.renderer.slab_counter(tr.device)
+    slabs.zero_()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     # the trained parameters, not their EMA: the EMA is taken once per
@@ -1249,13 +1324,15 @@ def phase_eval(tr, smi):
                    log_fn=lambda m: print(m, flush=True))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     log("eval", f"evaluate: {secs:.2f} s for one LiDAR frame "
                 f"({val.H_lidar}x{val.W_lidar}) and one camera frame "
-                f"({val.H}x{val.W}); launches {launches}; slab checks "
-                f"(host syncs) {tr.renderer.slab_checks - checks0}; "
-                f"peak memory "
+                f"({val.H}x{val.W}), each a replay of the frame graphs "
+                f"(captured here); launches {launches}; slab checks "
+                f"(host syncs) {tr.renderer.slab_checks - checks0}, slabs "
+                f"run {int(slabs)}; peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    assert tr.renderer.slab_checks == checks0, "a host read between slabs"
     for cat, r in res.items():
         key = {"CD": r["point"][0], "F-score": r["point"][1],
                "depth RMSE": r["depth"][0], "PSNR": r["rgb_psnr"]}
@@ -1269,26 +1346,29 @@ def phase_eval(tr, smi):
     assert launches["chamfer_min_dist"] >= 2 * len(res), launches
     assert launches["multihot_fwd"] > 0, launches
 
-    # evaluate rendered a frame of this size just before: no warm-up
+    # evaluate rendered (and captured) a frame of this size just before
     rays = tr.scene.H_lidar * tr.scene.W_lidar
-    times, checks0 = [], tr.renderer.slab_checks
-    for _ in range(1):
+    times = []
+    slabs.zero_()
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = tr.render_lidar_frame(0)             # ends in a host copy
         times.append(time.perf_counter() - t0)
     best = min(times)
     every = ", ".join(f"{t * 1e3:.1f}" for t in times)
-    log("eval", f"LiDAR frame render (occupancy stream, K' 96 of 768, "
-                f"chunks of 2048): best of {len(times)} {best * 1e3:.1f} ms "
-                f"= {rays / best:.0f} rays/s (all: {every} ms); "
-                f"{(tr.renderer.slab_checks - checks0) / len(times):.0f} "
-                f"slab checks per frame ({smi})")
+    log("eval", f"LiDAR frame render, graphed (occupancy stream, K' 96 of "
+                f"768, chunks of 2048): best of {len(times)} "
+                f"{best * 1e3:.1f} ms = {rays / best:.0f} rays/s (all: "
+                f"{every} ms); {int(slabs) / len(times):.0f} slabs run and "
+                f"{tr.renderer.slab_checks - checks0} slab checks per frame "
+                f"({smi})")
     fams, n_kernels, wall, n_rays = profile_render(tr)
     busy = sum(fams.values())
-    log("profile", f"render of every 8th ray of the frame ({n_rays} rays): "
-                   f"{wall:.1f} ms, device time {busy:.1f} ms in "
-                   f"{n_kernels} kernels; busy share {busy / wall:.2f}")
+    log("profile", f"graphed render of every 8th ray of the frame "
+                   f"({n_rays} rays): {wall:.1f} ms, device time "
+                   f"{busy:.1f} ms in {n_kernels} kernels; busy share "
+                   f"{busy / wall:.2f}")
     for f, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         log("profile", f"  render {f:22s} {ms:8.2f} ms")
     d_err, d_tol, i_err = check_stream_against_cpu(tr)
@@ -1304,6 +1384,235 @@ def phase_eval(tr, smi):
                 f"{mean_m:.3f} m), trained parameters, EMA and optimizer "
                 f"state unchanged; launches {ema_launches}")
     return launches, phase_eval_kernels(tr), (rays / best, res)
+
+
+# ----------------------------------------------------------------------
+# phase 13: the frame renders as CUDA graphs against the eager renders
+# ----------------------------------------------------------------------
+
+# graphed against eager: the same kernels on the same inputs; an output
+# may differ only where a library picks another algorithm inside a capture
+FRAME_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Inside the block a host synchronisation raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _frame_render(tr, rend, fi, lidar, occ, graphed):
+    """Training frame ``fi`` of one sensor through ``rend``: graphed, the
+    sweep's render (a replay of the renderer's frame graphs, the rays made
+    inside them); else ``Renderer.render_eager`` of the rays the graphs
+    make, on the card. Returns (outputs under the renderer's keys, slabs
+    run, synchronised wall seconds)."""
+    from nvsf_torch.lib import rays as raylib
+    from nvsf_torch.render import sweep
+    scene, dev = tr.scene, tr.device
+    t = float(scene.times[fi])
+    if lidar:
+        H, W, pose = scene.H_lidar, scene.W_lidar, scene.poses_lidar[fi]
+        kw = tr._occ_kwargs(tr.occ_grid_lidar, lidar=True) if occ else {}
+    else:
+        H, W, pose = scene.H, scene.W, scene.poses[fi]
+        kw = tr._occ_kwargs(tr.occ_grid_rgb) if occ else {}
+    rend.slab_counter(dev).zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if graphed and lidar:
+        o = sweep.render_pano(rend, pose, t, H, W, scene.intrinsics_lidar,
+                              scene.intrinsics_hoz_lidar, kw or None)
+        out = {"depth_lidar": o["depth"].reshape(-1),
+               "image_lidar": torch.stack([o["raydrop"], o["intensity"]],
+                                          -1).reshape(-1, 2)}
+    elif graphed:
+        o = sweep.render_view(rend, pose, t, H, W, scene.intrinsics,
+                              kw or None)
+        out = {"depth": o["depth"].reshape(-1),
+               "image": o["rgb"].reshape(-1, 3)}
+    else:
+        pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+        inds = torch.arange(H * W, dtype=torch.int32, device=dev)
+        if lidar:
+            ro, rd = raylib.get_lidar_rays(
+                pose, inds, H, W, tuple(map(float, scene.intrinsics_lidar)),
+                tuple(map(float, scene.intrinsics_hoz_lidar)))
+        else:
+            ro, rd = raylib.get_camera_rays(pose, inds, H, W, torch.as_tensor(
+                scene.intrinsics, dtype=torch.float32, device=dev))
+        out = rend.render_eager(ro, rd, torch.tensor(t, device=dev),
+                                cal_lidar_color=lidar,
+                                bg_color=None if lidar else 1.0, **kw)
+    torch.cuda.synchronize()
+    return out, int(rend.slabs_run), time.perf_counter() - t0
+
+
+def _graph_err(got, ref):
+    """The worst output's max |graphed - eager| over its max |eager|."""
+    return max(float((got[k] - ref[k]).abs().max())
+               / max(float(ref[k].abs().max()), 1e-30) for k in ref)
+
+
+def _stage_name(key) -> str:
+    """A frame graph's key as its stage and what it renders."""
+    if key[0].endswith("chunk"):
+        return f"{key[0]} {'LiDAR' if key[1] else 'camera'}"
+    n_rays = key[1][2] if key[0] == "occ-post" else key[2]
+    return f"{key[0]} {n_rays} rays"
+
+
+def phase_render(tr, smi):
+    """Phase 13 on phase 5's settled field: every frame render kind,
+    graphed against eager; a frame replayed with host syncs made errors; a
+    grid written in place read by the next replay; the rates, captures
+    and pools. Returns the launches of the phase (the "render" path)."""
+    scene = tr.scene
+    kernels.reset_launch_counts()
+    checks0 = tr.renderer.slab_checks + tr.ema_renderer.slab_checks
+    rate, frames = {}, {}
+    for name, rend in (("live", tr.renderer), ("EMA", tr.ema_renderer)):
+        for lidar in (True, False):
+            for occ in (True, False):
+                what = (f"{name} {'LiDAR' if lidar else 'camera'} "
+                        f"{'occupancy' if occ else 'dense'}")
+                rays = (scene.H_lidar * scene.W_lidar if lidar
+                        else scene.H * scene.W)
+                got, g_slabs, first = _frame_render(tr, rend, 0, lidar, occ,
+                                                    True)
+                ref, e_slabs, e_s = _frame_render(tr, rend, 0, lidar, occ,
+                                                  False)
+                err = _graph_err(got, ref)
+                assert np.isfinite(err) and err <= FRAME_RTOL, \
+                    f"{what}: graphed vs eager {err:.3e}"
+                assert g_slabs == e_slabs, (what, g_slabs, e_slabs)
+                frames[what] = got
+                msg = (f"{what} frame ({rays} rays): graphed vs eager worst "
+                       f"{err:.3e} of the output's max (tol {FRAME_RTOL:g})"
+                       + (f", slabs run {g_slabs} / {e_slabs}" if occ else "")
+                       + f"; first call (captures) {first * 1e3:.1f} ms, "
+                       f"eager {e_s * 1e3:.1f} ms = {rays / e_s:.0f} rays/s")
+                if name == "live":
+                    g_s = min(_frame_render(tr, rend, 0, lidar, occ,
+                                            True)[2] for _ in range(2))
+                    rate[what] = (rays / g_s, rays / e_s)
+                    msg += (f", graphed best of 2 {g_s * 1e3:.1f} ms = "
+                            f"{rays / g_s:.0f} rays/s")
+                log("render", msg + f" ({smi})")
+    assert not torch.equal(frames["live LiDAR occupancy"]["depth_lidar"],
+                           frames["EMA LiDAR occupancy"]["depth_lidar"])
+
+    # a whole frame at another pose and time, host syncs made errors
+    from nvsf_torch.render import sweep
+    rend = tr.renderer
+    kw = tr._occ_kwargs(tr.occ_grid_lidar, lidar=True)
+    fi = len(scene) - 1
+    torch.cuda.synchronize()
+    with sync_errors():
+        o = sweep.render_pano(rend, scene.poses_lidar[fi], scene.times[fi],
+                              scene.H_lidar, scene.W_lidar,
+                              scene.intrinsics_lidar,
+                              scene.intrinsics_hoz_lidar, kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o["depth"]).all()
+    assert not torch.equal(o["depth"].reshape(-1),
+                           frames["live LiDAR occupancy"]["depth_lidar"])
+    assert tr.renderer.slab_checks + tr.ema_renderer.slab_checks == checks0
+    log("render", f"LiDAR frame {fi} (another pose and time) replayed under "
+                  f"set_sync_debug_mode('error'): no host sync; slab checks "
+                  f"on the card 0")
+
+    # a grid written in place: the next replay reads it
+    grid = tr.occ_grid_lidar
+    saved = grid.clone()
+    with torch.no_grad():
+        grid[:, :, grid.shape[2] // 2:] = 0.0
+    got, g_slabs, _ = _frame_render(tr, rend, 0, True, True, True)
+    ref, e_slabs, _ = _frame_render(tr, rend, 0, True, True, False)
+    grid.copy_(saved)
+    err = _graph_err(got, ref)
+    changed = float((got["depth_lidar"] - frames["live LiDAR occupancy"][
+        "depth_lidar"]).abs().max())
+    assert err <= FRAME_RTOL and g_slabs == e_slabs and changed > 0, \
+        (err, g_slabs, e_slabs, changed)
+    log("render", f"upper half of the LiDAR grid emptied in place: the next "
+                  f"replay moves depth by up to {changed:.4f}, graphed vs "
+                  f"eager {err:.3e}, slabs {g_slabs} / {e_slabs}")
+
+    cfg = tr.cfg
+    K = cfg.num_steps_occ_render or cfg.num_steps_occ
+    S = min(rend.stream_slab, K)
+    n = scene.H_lidar * scene.W_lidar
+    Np = -(-n // 8192) * 8192
+    chunks = -(-Np // rend.chunk_rays(Np))
+    slabs = _frame_render(tr, rend, 0, True, True, True)[1]
+    log("render", f"LiDAR frame: {slabs} slabs run of {chunks} x "
+                  f"{-(-K // S)} = {chunks * -(-K // S)} without the exit")
+    for what, (g, e) in rate.items():
+        log("render", f"{what} frame: graphed {g:.0f} rays/s, eager {e:.0f} "
+                      f"rays/s ({g / e:.2f}x) ({smi})")
+    for name, r in (("live", tr.renderer), ("EMA", tr.ema_renderer)):
+        fg = r.frame_graphs
+        caps = ", ".join(f"{_stage_name(k)} {s:.2f} s "
+                         f"{fg.capture_gib[k]:.3f} GiB"
+                         for k, s in fg.capture_s.items())
+        log("render", f"{name} renderer: {len(fg.graphs)} graphs, "
+                      f"{fg.replays} replays; captures (time, pool growth): "
+                      f"{caps}")
+    fg = tr.renderer.frame_graphs
+    assert fg.pools is tr.ema_renderer.frame_graphs.pools
+    graph_gib, body_gib = pool_gib(fg.pools.graph), pool_gib(fg.pools.body.id)
+    render_gib = graph_gib + body_gib
+    log("render", f"the frame graphs' shared pools: {graph_gib:.3f} GiB + IF "
+                  f"bodies {body_gib:.3f} GiB ({smi})")
+    launches = kernels.launch_counts()
+    log("render", f"launches of the phase {launches}")
+    assert launches["multihot_fwd"] > 0 and launches["graph_if"] > 0
+
+    # a replay counts the B3 launches of the slabs that ran, not of the
+    # IF nodes the device skipped: per slab as many as the eager frame's
+    # per slab step (every step issued there, gated)
+    kernels.reset_launch_counts()
+    slabs = _frame_render(tr, rend, 0, True, True, True)[1]
+    graphed = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    _frame_render(tr, rend, 0, True, True, False)
+    eager = kernels.launch_counts()
+    steps = chunks * -(-K // S)
+    assert graphed["multihot_fwd"] * steps == eager["multihot_fwd"] * slabs \
+        and graphed["graph_if"] == steps, (graphed, eager, slabs, steps)
+    log("render", f"LiDAR frame launches: graphed B3 {graphed['multihot_fwd']}"
+                  f" for {slabs} slabs run, eager {eager['multihot_fwd']} for "
+                  f"{steps} slab steps; IF nodes {graphed['graph_if']}")
+
+    # a training epoch with both renderers' frame graphs resident (as after
+    # an evaluate() in training): the card's memory, the eager renders'
+    # cached blocks released first
+    steps_gib = (pool_gib(tr.step_graphs.pool)
+                 if tr.step_graphs is not None else 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.epoch += 1
+    tr.train_one_epoch(order=np.arange(8))
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+    log("render", f"a training epoch of 8 steps after the renders "
+                  f"({time.perf_counter() - t0:.2f} s): peak allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                  f"peak reserved {peak_reserved:.2f} GiB, of which the render pools {render_gib:.2f} GiB and "
+                  f"the step graphs' {steps_gib:.2f} GiB; the card's memory "
+                  f"in use {(total - free) / 2**30:.2f} of "
+                  f"{total / 2**30:.2f} GiB ({smi})")
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -1440,7 +1749,7 @@ def phase_cli(smi):
         "--mesh_bound_max", "0.3", "0.15", "0.04", "--density_thresh", "3"])
     torch.cuda.synchronize()
     t_test = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     name = tr.name
     log("cli", f"train run {t_train:.1f} s, test run {t_test:.1f} s; "
                 f"launches {launches} ({smi})")
@@ -1647,9 +1956,9 @@ def phase_uniform(smi, trained, stream):
                    f"memory allocated "
                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
                    f"the graph's pool "
-                   f"{pool_gib(tr.step_graphs):.2f} GiB ({smi}) "
+                   f"{pool_gib(tr.step_graphs.pool):.2f} GiB ({smi}) "
                    f"{took()}")
-    step_launches = dict(kernels.LAUNCHES)
+    step_launches = kernels.launch_counts()
     log("uniform", f"peak memory of the steps (8 remat chunks) "
                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
                    f"launches of its {tr.global_step} steps "
@@ -1662,7 +1971,7 @@ def phase_uniform(smi, trained, stream):
 
     kernels.reset_launch_counts()
     l8, l1, worst, gerr, m8, m1 = check_remat(tr)
-    f32_launches = dict(kernels.LAUNCHES)
+    f32_launches = kernels.launch_counts()
     log("uniform", f"remat 8 vs 1 chunks, one f32 step at 2048 + 2048 rays:"
                    f" loss {l8:.7g} / {l1:.7g}, worst gradient {worst} "
                    f"{gerr:.2e} of its max (tol 1e-5); peak memory "
@@ -1702,20 +2011,22 @@ def phase_uniform(smi, trained, stream):
     frame = val.H_lidar * val.W_lidar
     secs = frame_render["seconds"]
     chunks = -(-frame // cfg.max_ray_batch)
-    log("uniform", f"LiDAR frame render in evaluate (dense, {frame} rays x "
-                   f"{cfg.num_steps} samples in {chunks} chunks of "
-                   f"{cfg.max_ray_batch}): {secs * 1e3:.1f} ms = "
+    log("uniform", f"LiDAR frame render in evaluate (dense, graphed, "
+                   f"{frame} rays x {cfg.num_steps} samples in {chunks} "
+                   f"chunks of {cfg.max_ray_batch}, captured here): "
+                   f"{secs * 1e3:.1f} ms = "
                    f"{frame / secs:.0f} rays/s; the streaming marcher of "
                    f"phase 5: {stream_rays_per_s:.0f} rays/s ({smi})")
     fams, n_kernels, wall, n_rays = profile_render(tr)
     busy = sum(fams.values())
-    log("profile", f"dense render of every 8th ray of the frame ({n_rays} "
-                   f"rays): {wall:.1f} ms, device time {busy:.1f} ms in "
-                   f"{n_kernels} kernels; busy share {busy / wall:.2f} "
+    log("profile", f"graphed dense render of every 8th ray of the frame "
+                   f"({n_rays} rays): {wall:.1f} ms, device time "
+                   f"{busy:.1f} ms in {n_kernels} kernels; busy share "
+                   f"{busy / wall:.2f} "
                    f"{took()}")
     for f, fms in sorted(fams.items(), key=lambda kv: -kv[1]):
         log("profile", f"  dense render {f:22s} {fms:8.2f} ms")
-    eval_launches = dict(kernels.LAUNCHES)
+    eval_launches = kernels.launch_counts()
     launches = {k: step_launches[k] + eval_launches[k] for k in step_launches}
     log("uniform", f"launches of the full-width path: steps {step_launches}"
                    f", dense eval {eval_launches}; the f32 remat check "
@@ -1973,7 +2284,7 @@ def phase_kitti(smi):
     tr = cli_main(argv)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     ws = KITTI_DIR / "ws"
     logs = (ws / f"log_{tr.name}.txt").read_text()
     assert "[recovery]" not in logs, "the training run restarted an epoch"
@@ -2091,7 +2402,7 @@ def phase_joint(smi):
     tr.epoch = 1
     st = tr.train_one_epoch()
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     log("joint", f"joint-8x4 (hash 8x4, flow 16x8, K 128 / 128, "
                  f"{cfg.num_rays_lidar} + {cfg.num_rays} rays, bf16): setup "
                  f"and one fused epoch of {len(scene)} steps "
@@ -2145,7 +2456,7 @@ def phase_joint(smi):
                  f"{tr.step_graphs.capture_s[False]:.2f} s; peak memory "
                  f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
                  f"GiB, the graph's pool "
-                 f"{pool_gib(tr.step_graphs):.2f} GiB ({smi})")
+                 f"{pool_gib(tr.step_graphs.pool):.2f} GiB ({smi})")
     for joint in (False, True):
         tr.joint = joint
         name = "fused" if joint else "separate"
@@ -2278,7 +2589,7 @@ def parallel_rank(mesh, ref_path):
     out["eval_s"] = time.perf_counter() - t0
     out["sharded_render_s"] = frame_render["seconds"]
     sharded = frame_render["out"]
-    out["launches"] = dict(kernels.LAUNCHES)
+    out["launches"] = kernels.launch_counts()
     out["eval"] = res["combined"]
     out["differ"] = replicas_differ(mesh, tr.replicated_state())
     out["n_replicated"] = len(tr.replicated_state())
@@ -2615,7 +2926,7 @@ def phase_graph(smi):
     finally:
         sampler.sample_indices, sampler.update_error_map = orig_si, orig_em
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     sg = g.step_graphs
     assert sorted(sg.graphs) == [False, True] and replays == 7, \
         (sorted(sg.graphs), replays)
@@ -2634,7 +2945,21 @@ def phase_graph(smi):
     return launches
 
 
-def main():
+def render_alone(smi):
+    """``--phase render``: phase 13 alone, on phase 4's trainer after its
+    two epochs and phase 5's settling (no checks of those phases)."""
+    from nvsf_torch.train.trainer import Trainer
+    spec, scene = slice_scene()
+    tr = Trainer(joint_tuned_config(spec), scene, seed=0, device="cuda")
+    for ep in (1, 2):
+        tr.epoch = ep
+        tr.train_one_epoch()
+    settle_for_render(tr)
+    phase_render(tr, smi)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2647,6 +2972,17 @@ def main():
     smi = phase_card()
     phase_build()
     done("build")
+    if argv == ["--phase", "render"]:
+        render_alone(smi)
+        done("render (phase 13 alone)")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if argv:
+        raise SystemExit(f"usage: chip_smoke.py [--phase render], got "
+                         f"{argv}")
     rows = phase_kernels()
     done("kernels")
     tr, train_launches, slice_step_ms = phase_slice(smi)
@@ -2657,6 +2993,8 @@ def main():
     for name, rs in eval_rows.items():
         rows[name] += rs
     done("eval")
+    render_launches = phase_render(tr, smi)
+    done("render (phase 13, on phase 5's field)")
     trained = {k: v.detach().clone() for k, v in tr.field.state_dict().items()}
     del tr
     torch.cuda.empty_cache()
@@ -2691,7 +3029,7 @@ def main():
     paths = {"train": train_launches, "eval": eval_launches,
              "cli": cli_launches, **uniform_paths, "kitti": kitti_launches,
              "joint": joint_launches, "parallel": parallel_launches,
-             "graph": graph_launches}
+             "graph": graph_launches, "render": render_launches}
     for counts in paths.values():
         counts["segment_add"] -= counts["segment_add_f32"]
     record = []

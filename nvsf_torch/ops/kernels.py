@@ -12,7 +12,13 @@ without ``nvcc``.
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
 where it launches its kernel, and nowhere else. ``segment_add`` counts
 every launch of the segment-add kernel, ``segment_add_f32`` those of its
-f32 variant (B2) again.
+f32 variant (B2) again; ``graph_if`` the conditional IF nodes that the
+frame graphs capture (``csrc/graph_cond.cu``, each with a one-thread
+kernel that sets the node's condition). A launch inside the body of an IF
+node runs only where the device decides so: the body adds it to a
+counter on the device (``device_launch_counter``), and ``launch_counts``
+reads those counters into ``LAUNCHES``. Read the counts through
+``launch_counts()``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -33,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"segment_add": 0, "segment_add_f32": 0, "multihot_fwd": 0,
-            "multihot_bwd": 0, "chamfer_min_dist": 0}
+            "multihot_bwd": 0, "chamfer_min_dist": 0, "graph_if": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -44,6 +51,8 @@ _SIGNATURES = {
     "nvsf_multihot_bwd": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _I64, _P),
     "nvsf_min_dist2": (_P, _I64, _P, _P, _I64, _P, _P),
+    "nvsf_graph_begin_if": (_P, _P, _P, _I),
+    "nvsf_graph_end_if": (_P,),
 }
 
 _lock = threading.Lock()
@@ -51,7 +60,32 @@ _lib = None
 build_info = {}
 
 
+# counters on the device, int64 [len(LAUNCHES)] in the order of LAUNCHES
+_DEVICE_COUNTS = weakref.WeakValueDictionary()     # id -> counter
+
+
+def device_launch_counter(device):
+    """A zeroed counter of launches on ``device`` that ``launch_counts``
+    reads: the work that launches adds its launches to it on the device."""
+    import torch
+    counter = torch.zeros(len(LAUNCHES), dtype=torch.int64, device=device)
+    _DEVICE_COUNTS[id(counter)] = counter
+    return counter
+
+
+def launch_counts() -> dict:
+    """``LAUNCHES`` with the device counters' launches moved into it (a
+    host read of each counter, which waits for the work queued before)."""
+    for counter in list(_DEVICE_COUNTS.values()):
+        for k, n in zip(LAUNCHES, counter.tolist()):
+            LAUNCHES[k] += n
+        counter.zero_()
+    return dict(LAUNCHES)
+
+
 def reset_launch_counts() -> None:
+    for counter in list(_DEVICE_COUNTS.values()):
+        counter.zero_()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 

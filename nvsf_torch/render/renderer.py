@@ -7,7 +7,9 @@ renders a LiDAR and a camera batch with each encoder family run once for
 both (``joint_fusion``), and ``render``, the JAX
 package's ``render(staged=True)``: chunks of dense ``run`` without an
 occupancy grid, the streaming marcher ``run_occupancy_stream`` /
-``_render_staged_occ`` with one.
+``_render_staged_occ`` with one. On the card the eval renders replay
+the renderer's CUDA graphs (``render/frame_graph.py``), the marcher's
+slab loop as conditional IF nodes; ``render_eager`` renders without them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from nvsf_torch.lib.constants import device_constant
 from nvsf_torch.models.field import NVSFField
 from nvsf_torch.ops.occupancy import OccupancyGrid
+from nvsf_torch.render.frame_graph import FrameGraphs, run_chunks
 
 # rays compacted at once by the full-frame render (renderer.py:641)
 COMPACT_CHUNK = 8192
@@ -53,8 +56,8 @@ def linspace01(T: int, device=None) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _linspace01(T: int, device: torch.device) -> torch.Tensor:
     z = torch.arange(T, dtype=torch.float32, device=device) \
-        * torch.tensor(1.0 / (T - 1), dtype=torch.float32, device=device)
-    z[-1] = 1.0
+        * device_constant(1.0 / (T - 1), torch.float32, device)
+    z[-1:].fill_(1.0)
     return z
 
 
@@ -142,9 +145,21 @@ class Renderer:
     occ_delta_clamp: float = 0.0
     max_ray_batch: int = 4096      # rays per render chunk at eval
     stream_slab: int = 16          # samples per early-exit slab at eval
-    # host checks of "is any ray of the chunk alive" made by the streaming
-    # marcher, one before each slab it may run (a device -> host sync each)
+    # host reads of "is any ray of the chunk alive" made by the streaming
+    # marcher, one before each slab it may run (a device -> host sync
+    # each); only the CPU reads them, the card decides on the device
     slab_checks: int = dc_field(default=0, compare=False)
+    # slabs the marcher ran: an int64 counter on the field's device that
+    # each slab adds one to where it runs (``slab_counter``); reset it with
+    # ``zero_()``, a captured frame adds to it at its address
+    slabs_run: Optional[torch.Tensor] = dc_field(
+        default=None, init=False, repr=False, compare=False)
+    # this renderer's captured frame renders (``frame_graphs``); not an
+    # init field, so that ``dataclasses.replace`` (the EMA renderer) starts
+    # without the graphs of the renderer it copies, which read that
+    # renderer's field
+    _frame_graphs: Optional[object] = dc_field(
+        default=None, init=False, repr=False, compare=False)
 
     def aabb(self, device):
         b = float(self.bound)
@@ -423,19 +438,63 @@ class Renderer:
         return outs[0], outs[1], extra
 
     # ------------------------------------------------------------------
-    # eval: the streaming early-exit marcher (no gradient)
+    # eval: the streaming early-exit marcher and the frame renders (no
+    # gradient). On the card each replays this renderer's captured graphs
+    # (``render/frame_graph.py``), the counterpart of the JAX package's
+    # jitted renders; on the CPU each runs eagerly.
     # ------------------------------------------------------------------
+    @property
+    def frame_graphs(self) -> FrameGraphs:
+        """This renderer's captured frame renders, made at first use."""
+        if self._frame_graphs is None:
+            self._frame_graphs = FrameGraphs(self)
+        return self._frame_graphs
+
+    def drop_frame_graphs(self) -> None:
+        """Forget the captured frame renders (the pools that every
+        renderer's graphs share are freed with the last of them): a graph
+        reads the field's parameters and the occupancy grid at the
+        addresses they had at its capture."""
+        self._frame_graphs = None
+
+    def slab_counter(self, device) -> torch.Tensor:
+        """``slabs_run`` on ``device``, made there at first use."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self.slabs_run is None or self.slabs_run.device != device:
+            self.slabs_run = torch.zeros((), dtype=torch.int64, device=device)
+        return self.slabs_run
+
     @torch.no_grad()
     def run_occupancy_stream(self, rays_o, rays_d, time, occ: OccupancyGrid,
                              occ_grid, *, num_steps_occ: int,
                              cal_lidar_color=False, bg_color=None,
-                             occ_thresh: float = 0.01,
+                             occ_thresh: float = 0.01, slab: int = 32,
                              trans_eps: float = 1e-4, skip_warp=False):
         """Occupancy rendering with alive-ray early termination
         (``renderer.py:502-553``): the K compacted samples are composited
-        in z-ordered slabs of ``stream_slab``, stopping once every ray has
+        in z-ordered slabs of ``slab``, stopping once every ray has
         transmittance below ``trans_eps`` or no occupied sample ahead.
-        Quadrature is that of ``run_occupancy``; eval only."""
+        Quadrature is that of ``run_occupancy``; eval only. On the card a
+        replay of the graph captured for this batch (``FrameGraphs.stream``).
+        """
+        kw = dict(num_steps_occ=num_steps_occ,
+                  cal_lidar_color=cal_lidar_color, bg_color=bg_color,
+                  occ_thresh=occ_thresh, slab=slab, trans_eps=trans_eps,
+                  skip_warp=skip_warp)
+        if rays_o.is_cuda:
+            return self.frame_graphs.stream(rays_o, rays_d, time, occ,
+                                            occ_grid, **kw)
+        return self.stream_batch(rays_o, rays_d, time, occ, occ_grid, **kw)
+
+    @torch.no_grad()
+    def stream_batch(self, rays_o, rays_d, time, occ: OccupancyGrid,
+                     occ_grid, *, num_steps_occ, cal_lidar_color, bg_color,
+                     occ_thresh, slab, trans_eps, skip_warp, slab_steps=None):
+        """``run_occupancy_stream`` of one batch without graphs, on the
+        batch's device; ``slab_steps`` runs the slab loop (by default
+        ``_slab_steps``; the frame graphs pass theirs at capture)."""
         T = self.num_steps
         nears, fars = self._near_far(rays_o, rays_d, cal_lidar_color)
         z_cand = nears + (fars - nears) * linspace01(T, rays_o.device)[None]
@@ -444,9 +503,8 @@ class Renderer:
                                             num_steps_occ, occ_thresh)
         depth, image, weights_sum = self._stream_composite(
             rays_o, rays_d, time, z_vals, valid, sample_dist,
-            cal_lidar_color=cal_lidar_color,
-            slab=min(self.stream_slab, num_steps_occ),
-            trans_eps=trans_eps, skip_warp=skip_warp)
+            cal_lidar_color=cal_lidar_color, slab=min(slab, num_steps_occ),
+            trans_eps=trans_eps, skip_warp=skip_warp, slab_steps=slab_steps)
         if cal_lidar_color:
             return {"depth_lidar": depth, "image_lidar": image,
                     "weights_sum_lidar": weights_sum}
@@ -455,15 +513,44 @@ class Renderer:
         image = image + (1.0 - weights_sum)[..., None] * bg_color
         return {"depth": depth, "image": image, "weights_sum": weights_sum}
 
+    def _slab_steps(self, n: int, alive, body) -> None:
+        """The marcher's loop without graphs, JAX's
+        ``lax.while_loop(slab_cond, slab_body)``: for i < n, ``body(i,
+        gate)`` runs where the device bool ``alive(i)`` holds.
+          - On the CPU the host reads the bool (``slab_checks``) and skips
+            the body where it is false (``gate`` None).
+          - On the card (the eager render that the graphs are held to, and
+            their warm-up) every body runs, with ``gate`` the bool: it
+            writes its carry through ``torch.where(gate, ...)`` and so
+            leaves it as it was where the bool is false.
+        A capture passes its own loop instead (``FrameGraphs._slab_steps``:
+        each body a conditional IF node). The body writes its carry in
+        place: a skipped IF node writes nothing, and the code after the
+        loop reads the carry's tensors."""
+        for i in range(n):
+            pred = alive(i)
+            if not pred.is_cuda:
+                self.slab_checks += 1
+                if bool(pred):
+                    body(i, None)
+            else:
+                body(i, pred)
+
     @torch.no_grad()
     def _stream_composite(self, rays_o, rays_d, time, z_vals, valid,
                           sample_dist, *, cal_lidar_color, slab,
-                          trans_eps=1e-4, skip_warp=False):
+                          trans_eps=1e-4, skip_warp=False, slab_steps=None):
         """Early-exit slab compositor over pre-compacted samples
-        (``renderer.py:555-635``). The loop runs while any ray is alive
-        (transmittance above ``trans_eps`` and valid samples ahead); each
-        slab evaluates the field at every ray of the batch. The check is one
-        device -> host sync per slab."""
+        (``renderer.py:555-635``), in the shape of JAX's ``slab_body`` and
+        ``slab_cond``: the carry (transmittance, depth, image, weight sum)
+        is made before the loop and each slab updates it in place; before
+        slab i the predicate "a ray is alive", (trans > trans_eps) &
+        (m > i * S), is a bool on the device. Once false it stays false
+        (trans does not grow, and m > i * S only falls as i rises), so the
+        K // S steps of ``slab_steps`` (by default ``_slab_steps``) with the
+        later ones skipped are the while_loop with its exit. Each slab
+        evaluates the field at every ray of the batch, and adds one to
+        ``slabs_run``."""
         N, K = z_vals.shape
         T = self.num_steps
         S = slab
@@ -488,10 +575,12 @@ class Renderer:
         depth = torch.zeros((N,), device=dev)
         image = torch.zeros((N, out_dim), device=dev)
         wsum = torch.zeros((N,), device=dev)
-        for i in range(K // S):
-            self.slab_checks += 1
-            if not bool(((trans > trans_eps) & (m > i * S)).any()):
-                break
+        slabs_run = self.slab_counter(dev)
+
+        def alive(i):
+            return ((trans > trans_eps) & (m > i * S)).any()
+
+        def slab_body(i, gate):
             sl = slice(i * S, (i + 1) * S)
             zs, ds, vs = z_vals[:, sl], deltas[:, sl], valid[:, sl]
             xyzs = rays_o[:, None, :] + rays_d[:, None, :] * zs[..., None]
@@ -516,25 +605,48 @@ class Renderer:
                                     mask=mask,
                                     compute_dtype=self.compute_dtype)
             rgbs = rgbs.reshape(N, S, out_dim)
-            trans = trans * t_in[:, -1]
-            depth = depth + (weights * zs).sum(dim=-1)
-            image = image + (weights[..., None] * rgbs).sum(dim=-2)
-            wsum = wsum + weights.sum(dim=-1)
+
+            def gated(x, idle):
+                return x if gate is None else torch.where(gate, x, idle)
+
+            depth.add_(gated((weights * zs).sum(dim=-1), 0.0))
+            image.add_(gated((weights[..., None] * rgbs).sum(dim=-2), 0.0))
+            wsum.add_(gated(weights.sum(dim=-1), 0.0))
+            trans.mul_(gated(t_in[:, -1], 1.0))
+            slabs_run.add_(1 if gate is None else gate)
+
+        (slab_steps or self._slab_steps)(K // S, alive, slab_body)
         return depth, image, wsum
 
+    # ------------------------------------------------------------------
+    # a frame in stages: before the chunks, the chunks, after them (the
+    # frame graphs capture each stage as its own graph)
+    # ------------------------------------------------------------------
+    def chunk_rays(self, n: int) -> int:
+        """Rays per render chunk of a frame stage of ``n`` rows."""
+        return min(self.max_ray_batch, n)
+
+    def frame_outputs(self, n: int, cal_lidar_color, wsum=False) -> tuple:
+        """Zeroed depth [n], image [n, 2 or 3] (and weight sum [n]): the
+        buffers that the chunks of a frame write."""
+        out_dim = 2 if cal_lidar_color else 3
+        dev = next(self.field.parameters()).device
+        outs = (torch.zeros((n,), device=dev),
+                torch.zeros((n, out_dim), device=dev))
+        return outs + (torch.zeros((n,), device=dev),) if wsum else outs
+
     @torch.no_grad()
-    def _render_staged_occ(self, rays_o, rays_d, time, occ: OccupancyGrid,
-                           occ_grid, K, occ_thresh, cal_lidar_color,
-                           bg_color, skip_warp=False):
-        """Full-frame occupancy render with occupancy-sorted chunking
-        (``renderer.py:638-728``): compaction runs once for all rays in
-        chunks of ``COMPACT_CHUNK``, rays are sorted (stably) by their
-        occupied-sample count m, and the early-exit marcher gets homogeneous
-        chunks of ``max_ray_batch`` rays; outputs are unsorted at the end."""
+    def occ_frame_pre(self, rays_o, rays_d, occ: OccupancyGrid, occ_grid,
+                      K, occ_thresh, cal_lidar_color):
+        """The occupancy frame before the marcher (``renderer.py:660-703``):
+        compaction of all rays in chunks of ``COMPACT_CHUNK``, a stable sort
+        by the occupied-sample count m (homogeneous early-exit chunks, the
+        same chunk membership as ``jnp.argsort``) and padding to whole
+        chunks of ``chunk_rays``. Returns (rays_o, rays_d, z_vals, valid,
+        sample_dist) sorted and padded, and the inverse order [Np]."""
         N = rays_o.shape[0]
         T = self.num_steps
         dev = rays_o.device
-        S = min(self.stream_slab, K)
         nears, fars = self._near_far(rays_o, rays_d, cal_lidar_color)
         sample_dist = (fars - nears) / T
 
@@ -546,36 +658,36 @@ class Renderer:
         ro_p, rd_p = pad(rays_o, Np - N), pad(rays_d, Np - N, 1.0)
         nr_p, fr_p = pad(nears, Np - N), pad(fars, Np - N, 1.0)
         lin = linspace01(T, dev)[None, :]
-        z_sel, valid = [], []
+        z_sel = torch.empty((Np, K), device=dev)
+        valid = torch.empty((Np, K), dtype=torch.bool, device=dev)
         for c in range(0, Np, CC):
             z = nr_p[c:c + CC] + (fr_p[c:c + CC] - nr_p[c:c + CC]) * lin
             zc, vc = occ.compact_samples(occ_grid, ro_p[c:c + CC],
                                          rd_p[c:c + CC], z, K, occ_thresh)
-            z_sel.append(zc)
-            valid.append(vc)
-        z_sel = torch.cat(z_sel)
-        valid = torch.cat(valid) \
-            & (torch.arange(Np, device=dev) < N)[:, None]       # kill pads
+            z_sel[c:c + CC] = zc
+            valid[c:c + CC] = vc
+        valid &= (torch.arange(Np, device=dev) < N)[:, None]    # kill pads
         m = valid.sum(dim=-1)
-
-        # sort rays by occupied count -> homogeneous early-exit chunks; a
-        # stable sort, as jnp.argsort is, so chunk membership is the same
         order = torch.argsort(m, stable=True)
         inv = torch.argsort(order)
-        C = min(self.max_ray_batch, Np)
+        C = self.chunk_rays(Np)
         pad2 = -(-Np // C) * C - Np
 
         def sort_pad(a, fill=0.0):
             return pad(a[order], pad2, fill)
 
-        ro_s, rd_s = sort_pad(ro_p), sort_pad(rd_p, 1.0)
-        z_s, v_s = sort_pad(z_sel), sort_pad(valid, False)
-        sd_s = sort_pad(pad(sample_dist, Np - N, 1.0))
-        outs = [self._stream_composite(
-            ro_s[c:c + C], rd_s[c:c + C], time, z_s[c:c + C], v_s[c:c + C],
-            sd_s[c:c + C], cal_lidar_color=cal_lidar_color, slab=S,
-            skip_warp=skip_warp) for c in range(0, Np + pad2, C)]
-        depth, image, wsum = (torch.cat(o)[:Np][inv][:N] for o in zip(*outs))
+        return (sort_pad(ro_p), sort_pad(rd_p, 1.0), sort_pad(z_sel),
+                sort_pad(valid, False),
+                sort_pad(pad(sample_dist, Np - N, 1.0))), inv
+
+    @torch.no_grad()
+    def occ_frame_post(self, depth_s, image_s, wsum_s, inv, N,
+                       cal_lidar_color, bg_color) -> dict:
+        """The occupancy frame after the marcher: the chunks' outputs
+        unsorted, the camera's background composited."""
+        Np = inv.shape[0]
+        depth, image, wsum = (a[:Np][inv][:N]
+                              for a in (depth_s, image_s, wsum_s))
         if cal_lidar_color:
             return {"depth_lidar": depth, "image_lidar": image}
         if bg_color is None:
@@ -583,20 +695,72 @@ class Renderer:
         image = image + (1.0 - wsum)[..., None] * bg_color
         return {"depth": depth, "image": image}
 
+    def dense_frame_pre(self, rays_o, rays_d):
+        """The dense frame's rays padded to whole chunks of ``chunk_rays``
+        (origin 0, direction 1, ``renderer.py:790-797``)."""
+        N = rays_o.shape[0]
+        pad = -(-N // self.chunk_rays(N)) * self.chunk_rays(N) - N
+        return (torch.cat([rays_o, rays_o.new_zeros((pad, 3))]),
+                torch.cat([rays_d, rays_d.new_ones((pad, 3))]))
+
+    @torch.no_grad()
+    def occ_chunk(self, rays_o, rays_d, time, z_vals, valid, sample_dist,
+                  cal_lidar_color, slab, skip_warp=False,
+                  slab_steps=None) -> tuple:
+        """One chunk of sorted rays through the early-exit marcher
+        (``_stream_composite``, its slab loop run by ``slab_steps``):
+        (depth, image, weight sum)."""
+        return self._stream_composite(
+            rays_o, rays_d, time, z_vals, valid, sample_dist,
+            cal_lidar_color=cal_lidar_color, slab=slab, skip_warp=skip_warp,
+            slab_steps=slab_steps)
+
+    @torch.no_grad()
+    def dense_chunk(self, rays_o, rays_d, time, cal_lidar_color, bg_color,
+                    skip_warp=False) -> tuple:
+        """One dense chunk through ``run`` without jitter: (depth,
+        image)."""
+        out = self.run(rays_o, rays_d, time, cal_lidar_color=cal_lidar_color,
+                       bg_color=bg_color, skip_warp=skip_warp)
+        if cal_lidar_color:
+            return out["depth_lidar"], out["image_lidar"]
+        return out["depth"], out["image"]
+
+    @torch.no_grad()
+    def _render_staged_occ(self, rays_o, rays_d, time, occ: OccupancyGrid,
+                           occ_grid, K, occ_thresh, cal_lidar_color,
+                           bg_color, skip_warp=False):
+        """Full-frame occupancy render with occupancy-sorted chunking
+        (``renderer.py:638-728``), eagerly: ``occ_frame_pre``, the
+        early-exit marcher over chunks of ``max_ray_batch`` sorted rays,
+        ``occ_frame_post``."""
+        S = min(self.stream_slab, K)
+        ins, inv = self.occ_frame_pre(rays_o, rays_d, occ, occ_grid, K,
+                                      occ_thresh, cal_lidar_color)
+        outs = self.frame_outputs(ins[0].shape[0], cal_lidar_color, True)
+
+        def chunk(ro, rd, z, v, sd):
+            return self.occ_chunk(ro, rd, time, z, v, sd, cal_lidar_color,
+                                  S, skip_warp)
+
+        run_chunks(self.chunk_rays(inv.shape[0]), chunk, ins, outs)
+        return self.occ_frame_post(*outs, inv, rays_o.shape[0],
+                                   cal_lidar_color, bg_color)
+
     @torch.no_grad()
     def _render_dense(self, rays_o, rays_d, time, cal_lidar_color, bg_color,
                       skip_warp=False):
-        """Full-frame dense render: chunks of ``max_ray_batch`` rays through
-        ``run`` without jitter (``renderer.py:783-800``; the last chunk is
-        the remainder rather than padded, which changes no ray's output)."""
-        C = self.max_ray_batch
-        outs = [self.run(rays_o[c:c + C], rays_d[c:c + C], time,
-                         cal_lidar_color=cal_lidar_color, bg_color=bg_color,
-                         skip_warp=skip_warp)
-                for c in range(0, rays_o.shape[0], C)]
+        """Full-frame dense render, eagerly: chunks of ``max_ray_batch`` rays
+        through ``run`` without jitter (``renderer.py:783-800``; the last
+        chunk padded, as there)."""
+        N = rays_o.shape[0]
+        ins = self.dense_frame_pre(rays_o, rays_d)
+        outs = self.frame_outputs(ins[0].shape[0], cal_lidar_color)
+        run_chunks(self.chunk_rays(N), lambda ro, rd: self.dense_chunk(
+            ro, rd, time, cal_lidar_color, bg_color, skip_warp), ins, outs)
         keys = (("depth_lidar", "image_lidar") if cal_lidar_color
                 else ("depth", "image"))
-        return {k: torch.cat([o[k] for o in outs]) for k in keys}
+        return {k: o[:N] for k, o in zip(keys, outs)}
 
     def render(self, rays_o, rays_d, time, *, cal_lidar_color=False,
                bg_color=None, occ: Optional[OccupancyGrid] = None,
@@ -605,10 +769,25 @@ class Renderer:
         """Flat [N, 3] ray batch -> depth and image, the JAX package's
         ``render(staged=True)`` (``renderer.py:756-800``): through the
         sorted-chunk early-exit marcher with an occupancy grid, through
-        chunks of the dense ``run`` without one."""
+        chunks of the dense ``run`` without one. On the card a replay of
+        this renderer's frame graphs (``FrameGraphs.render``), on the CPU
+        eagerly (``render_eager``)."""
+        kw = dict(cal_lidar_color=cal_lidar_color, bg_color=bg_color,
+                  occ=occ, occ_grid=occ_grid, num_steps_occ=num_steps_occ,
+                  occ_thresh=occ_thresh, skip_warp=skip_warp)
+        if rays_o.is_cuda:
+            return self.frame_graphs.render(rays_o, rays_d, time, **kw)
+        return self.render_eager(rays_o, rays_d, time, **kw)
+
+    def render_eager(self, rays_o, rays_d, time, *, cal_lidar_color=False,
+                     bg_color=None, occ: Optional[OccupancyGrid] = None,
+                     occ_grid=None, num_steps_occ=None,
+                     occ_thresh: float = 0.01, skip_warp=False):
+        """``render`` without graphs, on the rays' device."""
         if occ is None or occ_grid is None:
             return self._render_dense(rays_o, rays_d, time, cal_lidar_color,
                                       bg_color, skip_warp=skip_warp)
         return self._render_staged_occ(
             rays_o, rays_d, time, occ, occ_grid, num_steps_occ, occ_thresh,
             cal_lidar_color, bg_color, skip_warp=skip_warp)
+

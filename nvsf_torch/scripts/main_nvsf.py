@@ -217,7 +217,7 @@ def _run_rank(mesh, cfg):
             "global_step": tr.global_step, "has_unet": tr.has_unet,
             "timers": dict(tr.timers.totals),
             "last_timers": dict(tr.timers.last),
-            "launches": dict(kernels.LAUNCHES),
+            "launches": kernels.launch_counts(),
             "collectives": mesh.collectives,
             "checkpoints": tr.checkpoints_written}
 

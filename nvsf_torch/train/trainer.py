@@ -320,10 +320,13 @@ class Trainer:
 
     def drop_step_graphs(self) -> None:
         """Forget the captured steps (the next scanned epoch captures
-        anew): a graph reads every tensor at the address it had at
+        anew) and both renderers' captured frame renders, which frees their
+        memory pools: a graph reads every tensor at the address it had at
         capture, and a load installs new error maps, grids and Adam
         moments."""
         self.step_graphs = None
+        self.renderer.drop_frame_graphs()
+        self.ema_renderer.drop_frame_graphs()
 
     @property
     def is_main(self) -> bool:

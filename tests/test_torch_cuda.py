@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, one
-training step and one eval through them. These need an NVIDIA GPU with nvcc
-and skip without one; on the card run them without the JAX test setup:
+training step and one eval through them, the captured step against the
+eager step, and the captured frame renders (``render/frame_graph.py``,
+the marcher's slab loop as conditional IF nodes) against eager renders on
+the card. These need an NVIDIA GPU with nvcc and skip without one; on the
+card run them without the JAX test setup:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -239,10 +242,12 @@ def test_training_step_launches_every_kernel(dev):
     kernels.reset_launch_counts()
     evaluate(tr, make_synthetic_scene(spec, split="val"), log_fn=None)
     # two launches per category whose clouds are not empty: at two steps
-    # the field may predict no point of the foreground object
-    assert kernels.LAUNCHES["chamfer_min_dist"] >= 2
-    assert kernels.LAUNCHES["multihot_fwd"] > 0
-    assert kernels.LAUNCHES["segment_add"] == 0
+    # the field may predict no point of the foreground object; the
+    # render's B3 launches run in IF nodes, counted on the device
+    launches = kernels.launch_counts()
+    assert launches["chamfer_min_dist"] >= 2
+    assert launches["multihot_fwd"] > 0
+    assert launches["segment_add"] == 0
 
 
 # ----------------------------------------------------------------------
@@ -349,3 +354,228 @@ def test_load_checkpoint_drops_the_captured_steps(dev, tmp_path):
     assert g.global_step == 8
     lr = g.optimizer.param_groups[0]["lr"]
     assert abs(float(lr) - g.cfg.lr * 0.1 ** (8 / 100)) <= 1e-6 * g.cfg.lr
+
+
+# ----------------------------------------------------------------------
+# the captured frame renders (render/frame_graph.py) against eager renders
+# ----------------------------------------------------------------------
+
+def _render_trainer(**over):
+    """A toy f32 occupancy trainer whose grids are empty above a plane (sky
+    chunks exit at once), its frames in several chunks of 512 rays and its
+    marcher in 4 slabs of 8 (K 32)."""
+    from nvsf_torch.config import NVSFConfig
+    from nvsf_torch.data.synthetic import (SyntheticSceneSpec,
+                                           make_synthetic_scene)
+    from nvsf_torch.train.trainer import Trainer
+
+    spec = SyntheticSceneSpec(num_frames=4, H_lidar=24, W_lidar=64, H=32,
+                              W=40, max_depth=80.0, scale=1 / 81)
+    s = spec.scale
+    cfg = NVSFConfig.from_dict(dict(
+        enable_lidar=True, enable_rgb=True, num_frames=4, scale=s, bound=1.0,
+        min_near_lidar=s, lidar_max_depth=80 * s, min_near=s,
+        active_sensor=True, num_rays=256, num_rays_lidar=256, num_steps=64,
+        num_steps_occ=32, render_mode="occupancy", log2_hashmap_size=14,
+        n_levels_hash=4, n_features_per_level_hash=8, flow_n_levels=4,
+        iters=100, occ_grid_size=32, max_ray_batch=512, stream_slab=8,
+        density_scale=30.0, **over))
+    tr = Trainer(cfg, make_synthetic_scene(spec))
+    with torch.no_grad():
+        for grid in (tr.occ_grid_lidar, tr.occ_grid_rgb):
+            grid[:, :, 20:] = 0.0
+        for k, p in tr.field.named_parameters():   # an EMA unlike the field
+            tr.ema[k].copy_(p * 0.9)
+    return tr
+
+
+def _eager_frame(tr, rend, fi, lidar, occ):
+    """Frame ``fi`` through ``Renderer.render_eager`` on the card, from the
+    rays the sweep makes: (outputs, slabs run)."""
+    from nvsf_torch.lib import rays as raylib
+    scene, dev = tr.scene, tr.device
+    if lidar:
+        H, W = scene.H_lidar, scene.W_lidar
+        ro, rd = raylib.get_lidar_rays(
+            torch.as_tensor(scene.poses_lidar[fi], dtype=torch.float32,
+                            device=dev),
+            torch.arange(H * W, dtype=torch.int32, device=dev), H, W,
+            tuple(map(float, scene.intrinsics_lidar)),
+            tuple(map(float, scene.intrinsics_hoz_lidar)))
+        kw = tr._occ_kwargs(tr.occ_grid_lidar, lidar=True) if occ else {}
+    else:
+        H, W = scene.H, scene.W
+        ro, rd = raylib.get_camera_rays(
+            torch.as_tensor(scene.poses[fi], dtype=torch.float32,
+                            device=dev),
+            torch.arange(H * W, dtype=torch.int32, device=dev), H, W,
+            torch.as_tensor(scene.intrinsics, dtype=torch.float32,
+                            device=dev))
+        kw = dict(tr._occ_kwargs(tr.occ_grid_rgb) if occ else {},
+                  bg_color=1.0)
+    rend.slab_counter(dev).zero_()
+    out = rend.render_eager(ro, rd, torch.tensor(float(scene.times[fi]),
+                                                 device=dev),
+                            cal_lidar_color=lidar, **kw)
+    return out, int(rend.slabs_run)
+
+
+def _graphed_frame(tr, rend, fi, lidar, occ):
+    """Frame ``fi`` through the sweep, which replays ``rend``'s frame
+    graphs: (outputs under the renderer's keys, slabs run)."""
+    from nvsf_torch.render import sweep
+    scene = tr.scene
+    rend.slab_counter(tr.device).zero_()
+    if lidar:
+        kw = tr._occ_kwargs(tr.occ_grid_lidar, lidar=True) if occ else None
+        o = sweep.render_pano(rend, scene.poses_lidar[fi], scene.times[fi],
+                              scene.H_lidar, scene.W_lidar,
+                              scene.intrinsics_lidar,
+                              scene.intrinsics_hoz_lidar, kw)
+        out = {"depth_lidar": o["depth"].reshape(-1),
+               "image_lidar": torch.stack([o["raydrop"], o["intensity"]],
+                                          -1).reshape(-1, 2)}
+    else:
+        kw = tr._occ_kwargs(tr.occ_grid_rgb) if occ else None
+        o = sweep.render_view(rend, scene.poses[fi], scene.times[fi],
+                              scene.H, scene.W, scene.intrinsics, kw)
+        out = {"depth": o["depth"].reshape(-1),
+               "image": o["rgb"].reshape(-1, 3)}
+    return out, int(rend.slabs_run)
+
+
+def _close_to_max(got, ref, rtol=1e-6):
+    for k in ref:
+        err = float((got[k] - ref[k]).abs().max())
+        assert err <= rtol * float(ref[k].abs().max()) + 1e-12, (k, err)
+
+
+@pytest.mark.parametrize("occ", [True, False], ids=["occupancy", "dense"])
+@pytest.mark.parametrize("lidar", [True, False], ids=["lidar", "camera"])
+def test_graphed_frames_match_eager_frames(dev, lidar, occ):
+    """Two frames at other poses and times from the live and the EMA
+    renderer through their frame graphs, each within 1e-6 of each
+    output's max of the eager render (``render_eager``: the same kernels,
+    every slab gated on the device) with the same slabs run; the second
+    frame renders other values (its pose and time refill the graphs'
+    static inputs); each renderer captured each stage once."""
+    tr = _render_trainer()
+    for rend in (tr.renderer, tr.ema_renderer):
+        frames = []
+        for fi in (0, 2):
+            got, n_got = _graphed_frame(tr, rend, fi, lidar, occ)
+            ref, n_ref = _eager_frame(tr, rend, fi, lidar, occ)
+            _close_to_max(got, ref)
+            assert n_got == n_ref, (n_got, n_ref)
+            frames.append(got)
+        key = next(iter(frames[0]))
+        assert not torch.equal(frames[0][key], frames[1][key])
+        fg = rend.frame_graphs
+        kinds = sorted(k[0] for k in fg.graphs)
+        assert kinds == (["occ-chunk", "occ-post", "occ-pre"] if occ
+                         else ["dense-chunk", "dense-pre"]), kinds
+    assert tr.renderer.frame_graphs is not tr.ema_renderer.frame_graphs
+    live = _graphed_frame(tr, tr.renderer, 0, lidar, occ)[0]
+    ema = _graphed_frame(tr, tr.ema_renderer, 0, lidar, occ)[0]
+    assert not torch.equal(live[key], ema[key])
+
+
+def test_frame_graphs_share_pools_and_count_the_slabs_that_ran(dev):
+    """The live and the EMA renderer's frame graphs capture into one pair
+    of pools, freed with the last of them. A graphed LiDAR frame counts the
+    B3 launches of the slabs that the device ran, not of those it skipped:
+    its launches over its slabs run equal the eager frame's (every slab
+    step issued, gated) over its slab steps, with slabs skipped, and each
+    replay counts its IF nodes' own kernels."""
+    import gc
+    from nvsf_torch.render import frame_graph
+    tr = _render_trainer()
+    live, ema = tr.renderer, tr.ema_renderer
+    _graphed_frame(tr, live, 0, True, True)             # captures
+    _graphed_frame(tr, ema, 0, True, True)
+    assert live.frame_graphs.pools is ema.frame_graphs.pools
+    kernels.reset_launch_counts()
+    _, slabs = _graphed_frame(tr, live, 0, True, True)
+    graphed = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    _, n_eager = _eager_frame(tr, live, 0, True, True)
+    eager = kernels.launch_counts()
+    # 24 x 64 rays in chunks of 512, K 32 in slabs of 8
+    steps = -(-tr.scene.H_lidar * tr.scene.W_lidar // 512) * (32 // 8)
+    assert slabs == n_eager and 0 < slabs < steps, (slabs, n_eager, steps)
+    assert graphed["multihot_fwd"] * steps == eager["multihot_fwd"] * slabs, \
+        (graphed, eager, slabs, steps)
+    assert graphed["graph_if"] == steps and eager["graph_if"] == 0
+    tr.drop_step_graphs()
+    gc.collect()
+    assert not list(frame_graph._POOLS)
+
+
+def test_graphed_chunk_is_sync_free_and_reads_the_grid_in_place(dev):
+    """``run_occupancy_stream`` of one chunk as a replay against the eager
+    chunk (1e-6 of each output's max, the same slabs, at least one slab
+    skipped); a second replay under ``set_sync_debug_mode("error")``; a
+    grid written in place changes the next replay as it changes the eager
+    chunk."""
+    tr = _render_trainer()
+    rend, scene = tr.renderer, tr.scene
+    H, W = scene.H_lidar, scene.W_lidar
+    from nvsf_torch.lib import rays as raylib
+    ro, rd = raylib.get_lidar_rays(
+        torch.as_tensor(scene.poses_lidar[1], dtype=torch.float32,
+                        device=dev),
+        torch.arange(0, H * W, 3, dtype=torch.int32, device=dev), H, W,
+        scene.intrinsics_lidar, scene.intrinsics_hoz_lidar)
+    t = torch.tensor(float(scene.times[1]), device=dev)
+    kw = dict(num_steps_occ=32, cal_lidar_color=True, occ_thresh=0.01,
+              slab=8)
+    args = (ro, rd, t, tr.occ, tr.occ_grid_lidar)
+
+    def both(trans_eps=1e-4):
+        rend.slab_counter(dev).zero_()
+        got = rend.run_occupancy_stream(*args, trans_eps=trans_eps, **kw)
+        n_got = int(rend.slabs_run)
+        rend.slabs_run.zero_()
+        ref = rend.stream_batch(*args, bg_color=None, skip_warp=False,
+                                     trans_eps=trans_eps, **kw)
+        assert n_got == int(rend.slabs_run), (n_got, int(rend.slabs_run))
+        _close_to_max(got, ref)
+        return got, n_got
+
+    first, n = both()
+    assert 0 < n <= 4, n
+    # every ray dead before the first slab: the device skips all four
+    dead, n_dead = both(trans_eps=2.0)
+    assert n_dead == 0 and float(dead["weights_sum_lidar"].abs().max()) == 0
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rend.run_occupancy_stream(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    with torch.no_grad():
+        tr.occ_grid_lidar[:, :, 12:] = 0.0
+    second, _ = both()
+    assert not torch.equal(first["depth_lidar"], second["depth_lidar"])
+    assert len(rend.frame_graphs.graphs) == 2
+
+
+def test_load_drops_the_frame_graphs(dev, tmp_path):
+    """A load installs new grids, so it drops both renderers' frame graphs
+    (and their pools); the next frame captures anew and renders what the
+    saved state rendered."""
+    tr = _render_trainer()
+    tr.cfg.workspace = tr.workspace = str(tmp_path)
+    before = tr.render_lidar_frame(1)
+    ema = tr.render_lidar_frame(1, use_ema=True)
+    assert tr.renderer._frame_graphs is not None
+    assert tr.ema_renderer._frame_graphs is not None
+    tr.save_checkpoint(full=True)
+    assert tr.load_checkpoint("latest")
+    assert tr.renderer._frame_graphs is None
+    assert tr.ema_renderer._frame_graphs is None
+    after = tr.render_lidar_frame(1)
+    for k in before:
+        np.testing.assert_allclose(after[k], before[k], rtol=0, err_msg=k,
+                                   atol=1e-6 * np.abs(before[k]).max())
+    assert not np.array_equal(ema["depth"], before["depth"])

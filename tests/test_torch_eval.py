@@ -267,7 +267,7 @@ def test_stream_render_matches_jax(fields, lidar, monkeypatch):  # noqa: F811
                                     occ_thresh=1.0, slab=16)
     to = trend.run_occupancy_stream(tro, trd, torch.tensor(t), tocc, tgrid,
                                     num_steps_occ=K, cal_lidar_color=lidar,
-                                    occ_thresh=1.0)
+                                    occ_thresh=1.0, slab=16)
     assert set(to) == set(jo)
     for k in to:
         np.testing.assert_allclose(to[k].numpy(), np.asarray(jo[k]),
@@ -275,6 +275,7 @@ def test_stream_render_matches_jax(fields, lidar, monkeypatch):  # noqa: F811
 
     jo = jrend._render_staged_occ(params, jro, jrd, t, jocc, jgrid, K, 1.0,
                                   lidar, None, compact_chunk=64)
+    trend.slabs_run.zero_()
     trend.slab_checks = 0
     monkeypatch.setattr(renderer_mod, "COMPACT_CHUNK", 64)
     to = trend._render_staged_occ(tro, trd, torch.tensor(t), tocc, tgrid, K,
@@ -283,8 +284,15 @@ def test_stream_render_matches_jax(fields, lidar, monkeypatch):  # noqa: F811
     for k in (dk, ik):
         np.testing.assert_allclose(to[k].numpy(), np.asarray(jo[k]),
                                    err_msg=k, **FWD)
-    # 6 chunks of 48 rays x 3 slabs: some chunks exited early
-    assert 6 <= trend.slab_checks < 6 * 3, trend.slab_checks
+    # 6 chunks of 48 rays x 3 slabs: the slabs that JAX's while_loop runs
+    # over the same sorted chunks, some chunks exited early (sky chunks at
+    # once); the CPU reads the predicate before each of the 18 slabs
+    from test_torch_frame_graph import jax_frame_slabs
+    expect = jax_frame_slabs(jrend, params, ro, rd, t, grid, K, lidar, 16,
+                             48, 64)
+    assert int(trend.slabs_run) == expect, (int(trend.slabs_run), expect)
+    assert 0 < expect < 6 * 3, expect
+    assert trend.slab_checks == 6 * 3, trend.slab_checks
     # without a grid: the dense uniform chunks of ``run``
     to = trend.render(tro, trd, torch.tensor(t), cal_lidar_color=lidar)
     assert set(to) == {dk, ik}
