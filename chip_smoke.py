@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase render    # phase 13 alone (~3 min)
+    python3 chip_smoke.py --phase programs  # phase 14 alone
 
 Phases, one line each:
   1. card     -- a CUDA device is present; prints nvidia-smi's name and
@@ -20,7 +21,9 @@ Phases, one line each:
                  after phase 5) hold B3 to them on the inputs of one
                  render slab of phase 5's field; its "uniform" rows (after
                  phase 8) hold B1, B3 and B4 to them on the inputs of one
-                 remat chunk of a dense step. The inputs of these rows
+                 remat chunk of a dense step; its "programs" rows (in
+                 phase 14) hold B3 to them on the inputs of one refresh
+                 and of one density-query chunk. The inputs of these rows
                  come from eager steps (use_scan=False): a captured step's
                  tensors are static buffers that its next replay
                  overwrites.
@@ -55,9 +58,15 @@ Phases, one line each:
                  test run renders and exports, and scores nothing), and
                  the mesh export. Checks the losses, that no epoch was
                  retried, the checkpoints, refine loss, refined meters,
-                 novel pano size, mesh faces and trace; prints each
-                 stage's wall time and the path's kernel launches; holds
-                 one eval-mode U-Net forward on the card to the CPU's.
+                 novel pano size, mesh faces and trace, that the refine
+                 stage replayed its captured step (after 2 eager ones) and
+                 the mesh export its captured density query; prints each
+                 stage's wall time (the mesh's query and iso-surface
+                 apart) and the path's kernel launches (the replays' B3
+                 among them); holds one eval-mode U-Net forward on the
+                 card to the CPU's. The script runs cuDNN in f32
+                 (cudnn.allow_tf32 False); the CLI alone keeps torch's
+                 default, TF32 convolutions.
   8. uniform  -- the dense uniform render mode (the JAX package's default)
                  at phase 4's width: 768 samples a ray through the field,
                  the density query in 8 remat chunks. Timed random and
@@ -128,6 +137,31 @@ Phases, one line each:
                  slab; a training epoch with the render pools resident,
                  its peak memory. Phase 3's "graph_if" row holds the IF
                  node (csrc/graph_cond.cu) to the gated update.
+ 14. programs -- (run after phase 13, on phase 5's field) the JAX package's
+                 last jitted programs, each captured as a CUDA graph
+                 (nvsf_torch/train/graphs.py), against its eager version
+                 on the card: (a) the occupancy refresh at the shipped
+                 cadence (G 128, 1/16 of the cells, 4 times, both grids),
+                 the grids at 2 seeds within 1e-6 of their max; (b) the
+                 U-Net refine step at the bench scene's shape [15, 3, 66,
+                 1030] (phase 5's LiDAR frame tiled, plus seeded noise):
+                 2 eager warm-ups and 20 replays against eager steps from
+                 the same state, loss, gradients and BatchNorm statistics
+                 within 1e-5 of each tensor's max, and the parameters and
+                 Adam moments after the eager Adam step taken again on the
+                 replay's gradients, each side's own-step parameters
+                 reported beside a second eager copy's (two eager runs
+                 differ there too); timed in f32 and with cuDNN's TF32;
+                 (c) the mesh export's density query
+                 of the default 256 x 256 x 32 grid (32 chunks), sigma
+                 within 1e-6 of its max, its device time 32 times one
+                 profiled chunk's, the iso-surface timed apart; (d)
+                 the EMA update, one call, bit-equal to the loop. Each
+                 program replayed once under set_sync_debug_mode("error");
+                 wall and device time, kernels and busy share, eager and
+                 graphed in turns; captures and pools. Its path
+                 ("programs") is one graphed refresh and one graphed query
+                 of the mesh grid.
 
 Each phase prints when it is done, with its share of the script's 600 s
 target (half the 1200 s allowed).
@@ -1115,8 +1149,7 @@ def settle_for_render(tr, epochs=4, frames=8, refreshes=18):
     occ = tr.occ
     tr.occ = dataclasses.replace(occ, update_fraction=1)    # whole grids
     for i in range(refreshes):
-        tr.refresh_occupancy(
-            torch.Generator(device=tr.device).manual_seed(0xACC0 + i))
+        tr.refresh_occupancy(0xACC0 + i)
     tr.occ = occ
     torch.cuda.synchronize()
 
@@ -1707,6 +1740,24 @@ def check_unet_against_cpu(tr):
     return err, tuple(x.shape)
 
 
+@contextlib.contextmanager
+def watch_refine():
+    """Inside the block, record each ``RefineSteps`` the refine stage
+    makes."""
+    import nvsf_torch.train.refine as rf
+    orig, seen = rf.RefineSteps, []
+
+    def make(*args, **kwargs):
+        seen.append(orig(*args, **kwargs))
+        return seen[-1]
+
+    rf.RefineSteps = make
+    try:
+        yield seen
+    finally:
+        rf.RefineSteps = orig
+
+
 def phase_cli(smi):
     from nvsf_torch.lib.image import png_size
     from nvsf_torch.render.export import extract_density_grid
@@ -1732,7 +1783,8 @@ def phase_cli(smi):
         "--workspace", str(ws)]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    tr = cli_main(common + ["--profile_dir", str(trace)])
+    with watch_refine() as refines:
+        tr = cli_main(common + ["--profile_dir", str(trace)])
     t_train = time.perf_counter() - t0
     t0 = time.perf_counter()
     tt = cli_main(common + [
@@ -1758,9 +1810,18 @@ def phase_cli(smi):
             log("cli", f"{run} stage {stage:16s} {secs:9.3f} s "
                        f"({timers.counts[stage]}x)")
     unet_ms = tr.timers.totals["refine unet"] / tr.cfg.refine_steps * 1e3
+    steps = tr.cfg.refine_steps
+    assert [(r.program.warm, r.program.replays) for r in refines] \
+        == [(2, steps - 2)], "the refine stage replayed no captured step"
+    query = tt.programs[("density query", 65536, True)]
+    assert query.replays > 0, "the mesh export replayed no captured query"
     log("cli", f"U-Net refine step {unet_ms:.2f} ms (batch "
                f"{len(tr.scene)} x 3 x {tr.scene.H_lidar} x "
-               f"{tr.scene.W_lidar}, {tr.cfg.refine_steps} steps)")
+               f"{tr.scene.W_lidar}, {steps} steps: 2 eager, the capture "
+               f"{refines[0].program.capture_s:.2f} s, "
+               f"{refines[0].program.replays} replays; cuDNN TF32 "
+               f"{torch.backends.cudnn.allow_tf32}); mesh export: "
+               f"{query.replays} replays of the density query")
 
     logs = (ws / f"log_{name}.txt").read_text()
     # an epoch retried after running out of memory would pass the checks
@@ -2945,6 +3006,441 @@ def phase_graph(smi):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 14: the JAX package's last jitted programs, graphed against eager
+# ----------------------------------------------------------------------
+
+# the refresh's grids and the export's sigma: the same kernels on the same
+# inputs, so 0 or the rounding of another cuBLAS algorithm under capture
+PROGRAM_RTOL = 1e-6
+# the refine step's loss, gradients, parameters and BatchNorm statistics:
+# cuDNN's backward algorithms may sum in another order
+REFINE_RTOL = 1e-5
+REFINE_CHECKED = 22          # 2 eager warm-ups, the capture, 20 replays
+
+
+def _wall_ms(fn) -> float:
+    """Wall ms of ``fn()`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _eager_graphed(what, eager, graphed, n, smi, profiled=2):
+    """``eager`` and ``graphed`` timed in turns, ``n`` times each, then
+    each profiled (device activity only: the eager density query's 80k
+    kernels and their host events took the profiler longer to gather than
+    the query): logs and returns {kind: (median wall ms, device ms,
+    kernels a call)}."""
+    fns = {"eager": eager, "graphed": graphed}
+    walls = {k: [] for k in fns}
+    for _ in range(n):
+        for k, fn in fns.items():
+            walls[k].append(_wall_ms(fn))
+    out = {}
+    for k, fn in fns.items():
+        fams, kern = profile_device(lambda i: fn(), n=profiled, host=False)
+        dev_ms, ms = sum(fams.values()), float(np.median(walls[k]))
+        out[k] = (ms, dev_ms, kern)
+        log("programs", f"{what}, {k}: wall {ms:.2f} ms (median of "
+                        f"{np.round(walls[k], 2).tolist()}), device "
+                        f"{dev_ms:.2f} ms in {kern} kernels, busy "
+                        f"{dev_ms / ms:.2f} ({smi})")
+    return out
+
+
+def _program_line(what, prog):
+    gib = pool_gib(prog.pool)
+    log("programs", f"{what}: captured in {prog.capture_s:.2f} s after "
+                    f"{prog.warm} eager warm-ups, {prog.replays} replays, "
+                    f"pool {gib:.3f} GiB, launches a replay "
+                    f"{ {k: n for k, n in prog.launches.items() if n} }")
+
+
+def _programs_path(tr):
+    """The phase's path: one refresh and the default mesh grid's density
+    query on the card, each a replay of its graph, the counts zeroed just
+    before (the query's first chunk is its eager warm-up, at its first
+    call)."""
+    cfg = tr.cfg
+    kernels.reset_launch_counts()
+    tr.refresh_occupancy(0xACC1)
+    refresh = kernels.launch_counts()
+    from nvsf_torch.render.export import extract_density_grid
+    extract_density_grid(tr, cfg.mesh_bound_min, cfg.mesh_bound_max,
+                         tuple(cfg.mesh_xyz_res))
+    launches = kernels.launch_counts()
+    assert refresh["multihot_fwd"] > 0 and \
+        launches["multihot_fwd"] > refresh["multihot_fwd"], launches
+    log("programs", f"launches of the path: the refresh {refresh}, with the "
+                    f"density query {launches}")
+    return launches
+
+
+def capture_program_inputs(tr):
+    """The inputs of B3's launches on the phase's path, as
+    ``capture_eval_inputs`` records a render slab's: the first call of each
+    shape in one eager refresh of the trainer's grids (the refresh's graph
+    launches the same kernels at the same shapes; the grids are put back
+    after it) and in the default mesh grid's eager density query (every
+    chunk of 65,536 points has the same shapes)."""
+    from nvsf_torch.render.export import extract_density_grid
+    cfg = tr.cfg
+    calls = {"refresh": [], "query": []}
+    orig = mh.multihot_fwd_cuda
+    grids = tr._occ_grids()
+    saved = [g.clone() for g in grids]
+
+    def recording(what):
+        def fwd(tables, cols, ws, W):
+            if all(c[1].shape != cols.shape or c[3] != W
+                   for c in calls[what]):
+                calls[what].append((_keep(tables), _keep(cols), _keep(ws),
+                                    W))
+            return orig(tables, cols, ws, W)
+        return fwd
+
+    try:
+        mh.multihot_fwd_cuda = recording("refresh")
+        tr.refresh_occupancy(0xACC4, graphed=False)
+        mh.multihot_fwd_cuda = recording("query")
+        extract_density_grid(tr, cfg.mesh_bound_min, cfg.mesh_bound_max,
+                             tuple(cfg.mesh_xyz_res), graphed=False)
+        torch.cuda.synchronize()
+    finally:
+        mh.multihot_fwd_cuda = orig
+        for g, s in zip(grids, saved):
+            g.copy_(s)
+    return calls
+
+
+def phase_program_kernels(tr):
+    """Phase 3's "programs" rows: B3 on the inputs of the refresh's and
+    the density query's launches, static and dynamic planes, each against
+    its plain version and timed beside its bound and embedding_bag."""
+    rows = {"multihot_fwd": []}
+    for what, calls in capture_program_inputs(tr).items():
+        assert len(calls) == 2, f"expected the static and the dynamic " \
+            f"planes' B3 launch in the {what}, got {len(calls)}"
+        for tables, cols, ws, W in calls:
+            Q, S, C, Np = cols.shape
+            rows["multihot_fwd"].append(multihot_fwd_row(
+                f"programs {what} Q={Q} S={S} C={C} W={W} "
+                f"F={tables.shape[0]} Np={Np}", tables, cols, ws, W))
+    report_kernels(rows)
+    return rows
+
+
+def _check_refresh(tr, smi):
+    """(a): the refresh at the trainer's cadence, graphed against eager."""
+    grids = tr._occ_grids()
+    saved = [g.clone() for g in grids]
+
+    def restore():
+        for g, s in zip(grids, saved):
+            g.copy_(s)
+
+    worst = 0.0
+    for seed in (0xACC2, 0xACC3):
+        restore()
+        tr.refresh_occupancy(seed)
+        got = [g.clone() for g in grids]
+        restore()
+        tr.refresh_occupancy(seed, graphed=False)
+        for a, b, s in zip(got, grids, saved):
+            assert not torch.equal(b, s), "the refresh changed no cell"
+            worst = max(worst, _rel_err(a, b))
+    assert worst <= PROGRAM_RTOL, f"refresh graphed vs eager {worst:.3e}"
+    restore()
+    torch.cuda.synchronize()
+    with sync_errors():
+        tr.refresh_occupancy(0xACC5)
+    torch.cuda.synchronize()
+    occ = tr.occ
+    log("programs", f"refresh (G {occ.grid_size}, 1/{occ.update_fraction} "
+                    f"of the cells, {tr.cfg.occ_time_samples} times, "
+                    f"{len(grids)} grids): graphed vs eager worst "
+                    f"{worst:.3e} of the grid's max (tol {PROGRAM_RTOL:g}) "
+                    f"at 2 seeds; a replay under set_sync_debug_mode"
+                    f"('error'): no host sync")
+    _eager_graphed("refresh", lambda: tr.refresh_occupancy(7, graphed=False),
+                   lambda: tr.refresh_occupancy(7), 5, smi)
+    restore()
+    _program_line("refresh graph", tr._refresh_program())
+
+
+@torch.no_grad()
+def _sync_refine(src, dst):
+    """``src``'s U-Net, Adam state and generator state into ``dst``'s
+    tensors, in place (Adam's normalised step turns an atomic-order
+    difference in a near-zero gradient into one the size of the rate, so
+    each step starts both from one state)."""
+    for p, q in zip(src.unet.parameters(), dst.unet.parameters()):
+        q.copy_(p)
+        for k, v in src.opt.state.get(p, {}).items():
+            dst.opt.state[q][k].copy_(v)
+    for a, b in zip(src.unet.buffers(), dst.unet.buffers()):
+        b.copy_(a)
+    dst.generator.set_state(src.generator.get_state())
+
+
+def _refine_snapshot(rs):
+    """Clones of ``rs``'s parameters and Adam state, by parameter."""
+    return {p: (p.detach().clone(), {k: v.clone() for k, v in
+                                     rs.opt.state.get(p, {}).items()})
+            for p in rs.unet.parameters()}
+
+
+@torch.no_grad()
+def adam_on(rs, snap, grads):
+    """``rs``'s Adam step once more, from the parameters and state of
+    ``snap`` (a missing state: Adam's zeros) on the gradients ``grads``,
+    at the rate ``rs`` holds."""
+    for p, g in zip(rs.unet.parameters(), grads):
+        p0, st0 = snap[p]
+        p.copy_(p0)
+        p.grad.copy_(g)
+        for k, v in rs.opt.state[p].items():
+            v.copy_(st0[k]) if k in st0 else v.zero_()
+    rs.opt.step()
+
+
+def _refine_steps(tr, unet, x, gt, graphed=None):
+    """A ``RefineSteps`` of the shipped 1000-step stage on ``unet``."""
+    from nvsf_torch.train.refine import RefineSteps
+    # Trainer.refine's rate
+    return RefineSteps(unet, x, gt, steps=tr.cfg.refine_steps, lr=1e-3,
+                       graphed=graphed)
+
+
+def _refine_pair(tr, x, gt):
+    """A graphed and an eager ``RefineSteps`` on two copies of the
+    trainer's U-Net."""
+    unet = copy.deepcopy(tr.unet).train()
+    return (_refine_steps(tr, unet, x, gt),
+            _refine_steps(tr, copy.deepcopy(unet), x, gt, graphed=False))
+
+
+def _check_refine(tr, smi):
+    """(b): the refine step at the bench scene's shape, graphed against
+    eager, and its times in f32 and with cuDNN's TF32."""
+    pred = tr.render_lidar_frame(0)
+    scene = tr.scene
+    B = len(scene)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    frame = torch.as_tensor(np.stack([pred["raydrop"], pred["intensity"],
+                                      pred["depth"]]), device="cuda")
+    x = frame.expand(B, *frame.shape) + 0.05 * torch.randn(
+        (B, *frame.shape), generator=gen, device="cuda")
+    gt = torch.as_tensor(scene.images_lidar[:, None, :, :, 0],
+                         dtype=torch.float32, device="cuda")
+    g, e = _refine_pair(tr, x, gt)
+    # a second eager copy: the gaps two eager runs of a step show
+    twin = _refine_steps(tr, copy.deepcopy(e.unet), x, gt, graphed=False)
+    worst = {"loss": 0.0, "gradient": 0.0, "statistic": 0.0,
+             "parameter": 0.0, "Adam moment": 0.0, "own-step parameter": 0.0,
+             "eager twin gradient": 0.0,
+             "eager twin own-step parameter": 0.0}
+    where = {}
+
+    def note(items):
+        """Each (kind, name, got, ref)'s relative error, read in one host
+        synchronisation, into ``worst``."""
+        errs = torch.stack([(a.float() - b.float()).abs().max()
+                            / b.float().abs().max().clamp_min(1e-30)
+                            for _, _, a, b in items]).tolist()
+        for (kind, name, _, _), err in zip(items, errs):
+            if err > worst[kind]:
+                worst[kind], where[kind] = err, name
+
+    for i in range(REFINE_CHECKED):
+        _sync_refine(g, e)
+        _sync_refine(g, twin)
+        snap = _refine_snapshot(e)
+        lg, le = float(g.step(i)), float(e.step(i))
+        twin.step(i)
+        if abs(lg - le) / abs(le) > worst["loss"]:
+            worst["loss"], where["loss"] = abs(lg - le) / abs(le), i
+        named = list(zip(g.unet.named_parameters(), e.unet.parameters(),
+                         twin.unet.parameters()))
+        items = [(kind, f"{k} step {i}", a, b)
+                 for (k, p), q, r in named
+                 for kind, a, b in (
+                     ("gradient", p.grad, q.grad),
+                     ("own-step parameter", p.detach(), q.detach()),
+                     ("eager twin gradient", r.grad, q.grad),
+                     ("eager twin own-step parameter", r.detach(),
+                      q.detach()))]
+        items += [("statistic", f"{k} step {i}", b, c) for (k, b), c in
+                  zip(g.unet.named_buffers(), e.unet.buffers())]
+        note(items)
+        # the eager Adam step again, on the replay's gradients: Adam's
+        # step m / (sqrt(v) + 1e-8) turns the backward's summation-order
+        # differences in a gradient near 1e-8 into ones the size of the
+        # rate, so the parameters are held to the same update of the same
+        # gradients
+        adam_on(e, snap, [p.grad for p in g.unet.parameters()])
+        note([("parameter", f"{k} step {i}", p.detach(), q.detach())
+              for (k, p), q, _ in named]
+             + [("Adam moment", f"{k} {m} step {i}", v, e.opt.state[q][m])
+                for (k, p), q, _ in named
+                for m, v in g.opt.state[p].items()])
+    assert g.program.replays == REFINE_CHECKED - 2 and g.program.warm == 2
+    bad = {k: v for k, v in worst.items()
+           if "own-step" not in k and "twin" not in k
+           and not v <= REFINE_RTOL}
+    log("programs", f"refine step on {tuple(x.shape)}: {REFINE_CHECKED} "
+                    f"steps (2 eager warm-ups, {g.program.replays} replays)"
+                    f" against eager steps from the same state: worst "
+                    + ", ".join(f"{k} {v:.3e} ({where.get(k)})"
+                                for k, v in worst.items())
+                    + f" of each tensor's max (tol {REFINE_RTOL:g}; the "
+                    f"parameters and moments after the eager Adam step on "
+                    f"the replay's gradients; 'own-step parameter': after "
+                    f"each side's own step, reported; 'eager twin': a "
+                    f"second eager copy from the same state against the "
+                    f"first, reported)")
+    assert not bad, f"refine graphed vs eager: {bad}"
+    del twin
+    with sync_errors():
+        g.step(REFINE_CHECKED)
+    torch.cuda.synchronize()
+    log("programs", "refine: a replay under set_sync_debug_mode('error'): "
+                    "no host sync")
+    i = REFINE_CHECKED + 1
+    _eager_graphed("refine step, f32 convolutions (cudnn.allow_tf32 False,"
+                   " the script's)", lambda: e.step(i), lambda: g.step(i), 3,
+                   smi)
+    _program_line("refine graph, f32", g.program)
+    del g, e
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        g, e = _refine_pair(tr, x, gt)
+        for j in range(3):
+            g.step(j), e.step(j)
+        _eager_graphed("refine step, cuDNN TF32 (cudnn.allow_tf32 True, "
+                       "torch's default, which the CLI keeps)",
+                       lambda: e.step(3), lambda: g.step(3), 3, smi)
+        _program_line("refine graph, TF32", g.program)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _check_export(tr, smi):
+    """(c): the mesh export's density query at the default grid, graphed
+    against eager, and the iso-surface timed apart."""
+    from nvsf_torch.render.export import (extract_density_grid,
+                                          marching_tetrahedra)
+    cfg = tr.cfg
+    res = tuple(cfg.mesh_xyz_res)
+    bmin, bmax = cfg.mesh_bound_min, cfg.mesh_bound_max
+
+    def query(graphed):
+        return extract_density_grid(tr, bmin, bmax, res, graphed=graphed)
+
+    walls, grids = {"eager": [], "graphed": []}, {}
+    for _ in range(2):                       # in turns
+        for kind in walls:
+            walls[kind].append(_wall_ms(lambda: grids.__setitem__(
+                kind, query(kind == "graphed"))))
+    got, ref = grids["graphed"], grids["eager"]
+    err = float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()),
+                                               1e-30)
+    assert np.isfinite(got).all() and err <= PROGRAM_RTOL, \
+        f"density query graphed vs eager {err:.3e}"
+    prog = tr.programs[("density query", 65536, True)]
+    pts = torch.rand((65536, 3), device="cuda") - 0.5
+    t = torch.zeros((), device="cuda")
+    torch.cuda.synchronize()
+    with sync_errors():
+        prog(pts=pts, t=t)
+    torch.cuda.synchronize()
+    n = int(np.prod(res))
+    chunks = -(-n // 65536)
+    log("programs", f"density query of the {'x'.join(map(str, res))} mesh "
+                    f"grid ({n} points, {chunks} chunks of 65536): "
+                    f"graphed vs eager {err:.3e} of sigma's max (tol "
+                    f"{PROGRAM_RTOL:g}); a replay under set_sync_debug_mode"
+                    f"('error'): no host sync")
+    # device time: one chunk profiled (every chunk has the same shapes;
+    # the whole grid's 80k kernels took the profiler longer than the
+    # query), times the chunks
+    chunk = {"eager": lambda: tr.ema_field.density(
+        pts, t, cal_lidar_color=True)["sigma"],
+        "graphed": lambda: prog(pts=pts, t=t)}
+    for kind, fn in chunk.items():
+        fams, kern = profile_device(lambda i: fn(), n=2, host=False)
+        dev_ms, ms = sum(fams.values()) * chunks, float(np.median(walls[kind]))
+        log("programs", f"density query, {kind}: wall {ms:.2f} ms (median "
+                        f"of {np.round(walls[kind], 2).tolist()}), device "
+                        f"{dev_ms:.2f} ms in {kern * chunks} kernels ({chunks}"
+                        f" x one chunk's), busy {dev_ms / ms:.2f} ({smi})")
+    _program_line("density query graph", prog)
+    t0 = time.perf_counter()
+    verts, faces = marching_tetrahedra(got, cfg.density_thresh, bmin, bmax)
+    log("programs", f"iso-surface (numpy marching tetrahedra, threshold "
+                    f"{cfg.density_thresh}): {time.perf_counter() - t0:.2f}"
+                    f" s, {len(faces)} faces")
+
+
+def _check_ema(tr, smi):
+    """(d): the EMA update, one call, against the loop it replaced."""
+    decay = tr.cfg.ema_decay
+    loop = {k: v.clone() for k, v in tr.ema.items()}
+
+    def by_loop():
+        with torch.no_grad():
+            for k, p in tr.field.named_parameters():
+                loop[k].mul_(decay).add_(p.detach(), alpha=1 - decay)
+
+    loop_ms = _wall_ms(by_loop)
+    ms = _wall_ms(tr.update_ema)
+    differ = [k for k, v in tr.ema.items() if not torch.equal(v, loop[k])]
+    log("programs", f"EMA update ({len(loop)} tensors, "
+                    f"{sum(v.numel() for v in loop.values())} values): "
+                    f"{ms:.3f} ms as two multi-tensor kernels, the "
+                    f"per-parameter loop {loop_ms:.3f} ms; bit-equal: "
+                    f"{not differ} ({smi})")
+    assert not differ, f"EMA update differs from the loop: {differ}"
+
+
+def phase_programs(tr, smi):
+    """Phase 14 on phase 5's settled field: the occupancy refresh, the
+    U-Net refine step and the mesh export's density query graphed against
+    eager at the shipped widths, each replayed once under
+    set_sync_debug_mode("error"), with wall and device times, captures and
+    pools; the EMA update timed; B3 on the path's inputs (phase 3's
+    "programs" rows). Returns the path's launches and those rows."""
+    t_phase = time.perf_counter()
+    launches = _programs_path(tr)
+    rows = phase_program_kernels(tr)
+    took = {}
+    for what, check in (("refresh", _check_refresh),
+                        ("refine", _check_refine),
+                        ("density query", _check_export),
+                        ("EMA", _check_ema)):
+        t0 = time.perf_counter()
+        check(tr, smi)
+        took[what] = round(time.perf_counter() - t0, 1)
+    log("programs", f"phase {time.perf_counter() - t_phase:.1f} s: {took}")
+    return launches, rows
+
+
+def programs_alone(smi):
+    """``--phase programs``: phase 14 alone, on phase 4's trainer after
+    its two epochs and phase 5's settling (no checks of those phases)."""
+    from nvsf_torch.train.trainer import Trainer
+    spec, scene = slice_scene()
+    tr = Trainer(joint_tuned_config(spec), scene, seed=0, device="cuda")
+    for ep in (1, 2):
+        tr.epoch = ep
+        tr.train_one_epoch()
+    settle_for_render(tr)
+    phase_programs(tr, smi)
+
+
 def render_alone(smi):
     """``--phase render``: phase 13 alone, on phase 4's trainer after its
     two epochs and phase 5's settling (no checks of those phases)."""
@@ -2972,17 +3468,18 @@ def main(argv=None):
     smi = phase_card()
     phase_build()
     done("build")
-    if argv == ["--phase", "render"]:
-        render_alone(smi)
-        done("render (phase 13 alone)")
+    alone = {"render": render_alone, "programs": programs_alone}
+    if len(argv) == 2 and argv[0] == "--phase" and argv[1] in alone:
+        alone[argv[1]](smi)
+        done(f"{argv[1]} (alone)")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
     if argv:
-        raise SystemExit(f"usage: chip_smoke.py [--phase render], got "
-                         f"{argv}")
+        raise SystemExit(f"usage: chip_smoke.py [--phase render|programs], "
+                         f"got {argv}")
     rows = phase_kernels()
     done("kernels")
     tr, train_launches, slice_step_ms = phase_slice(smi)
@@ -2995,6 +3492,10 @@ def main(argv=None):
     done("eval")
     render_launches = phase_render(tr, smi)
     done("render (phase 13, on phase 5's field)")
+    programs_launches, program_rows = phase_programs(tr, smi)
+    for name, rs in program_rows.items():
+        rows[name] += rs
+    done("programs (phase 14, on phase 5's field)")
     trained = {k: v.detach().clone() for k, v in tr.field.state_dict().items()}
     del tr
     torch.cuda.empty_cache()
@@ -3029,7 +3530,8 @@ def main(argv=None):
     paths = {"train": train_launches, "eval": eval_launches,
              "cli": cli_launches, **uniform_paths, "kitti": kitti_launches,
              "joint": joint_launches, "parallel": parallel_launches,
-             "graph": graph_launches, "render": render_launches}
+             "graph": graph_launches, "render": render_launches,
+             "programs": programs_launches}
     for counts in paths.values():
         counts["segment_add"] -= counts["segment_add_f32"]
     record = []

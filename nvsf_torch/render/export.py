@@ -2,7 +2,8 @@
 iso-surface by marching tetrahedra, and a PLY (counterpart of
 ``nvsf_tpu/render/export.py``, which rebuilds ``nvsf/nerf/utils.py:
 296-384,559-608`` without mcubes or trimesh). The grid is queried on the
-trainer's device in chunks; the iso-surface and the PLY are numpy (each
+trainer's device in chunks (on the card, replays of the chunk's query
+captured as a CUDA graph); the iso-surface and the PLY are numpy (each
 grid cell split into 6 tetrahedra: no 256-case tables, watertight
 output)."""
 
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from nvsf_torch.train.graphs import Program
 
 # the 6-tetrahedra decomposition of a cube (vertex indices into the 8 cube
 # corners, corner order: (x, y, z) bits -> index x + 2y + 4z)
@@ -23,21 +26,42 @@ _CUBE_OFFS = np.array([[x, y, z] for z in (0, 1) for y in (0, 1)
 
 @torch.no_grad()
 def extract_density_grid(trainer, bound_min, bound_max, xyz_res, t=0.0,
-                         cal_lidar_color=True, chunk=65536) -> np.ndarray:
+                         cal_lidar_color=True, chunk=65536,
+                         graphed=None) -> np.ndarray:
     """sigma of the EMA field on a regular grid over [bound_min,
     bound_max] (scene, i.e. scaled, coordinates), ``chunk`` points a query
-    on the trainer's device."""
+    on the trainer's device, the last chunk padded with the origin as the
+    JAX package's ``q`` pads it. On the card (``graphed`` None or True)
+    each chunk replays the query captured as a CUDA graph
+    (``train/graphs.py``; the trainer keeps it in ``programs``, dropped on
+    a load), the chunk's points and the time its static inputs, and the
+    chunks' sigma gathers in one device buffer, read once;
+    ``graphed=False`` queries eagerly."""
+    dev = trainer.device
+    graphed = dev.type == "cuda" if graphed is None else graphed
     xs = np.linspace(bound_min[0], bound_max[0], xyz_res[0])
     ys = np.linspace(bound_min[1], bound_max[1], xyz_res[1])
     zs = np.linspace(bound_min[2], bound_max[2], xyz_res[2])
     pts = np.stack(np.meshgrid(xs, ys, zs, indexing="ij"), -1).reshape(-1, 3)
-    pts = torch.as_tensor(pts, dtype=torch.float32, device=trainer.device)
+    n = len(pts)
+    pts = np.pad(pts, ((0, (-n) % chunk), (0, 0)))
+    pts = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+    t = torch.tensor(float(t), device=dev)
     field = trainer.ema_field
-    sigma = torch.cat([
-        field.density(pts[i:i + chunk], t,
-                      cal_lidar_color=cal_lidar_color)["sigma"]
-        for i in range(0, pts.shape[0], chunk)])
-    return sigma.cpu().numpy().reshape(xyz_res)
+
+    def query(pts, t):
+        return field.density(pts, t, cal_lidar_color=cal_lidar_color)["sigma"]
+
+    if graphed:
+        key = ("density query", chunk, bool(cal_lidar_color))
+        if key not in trainer.programs:
+            trainer.programs[key] = Program(
+                query, dev, held=lambda: list(field.parameters()))
+        query = trainer.programs[key]
+    sigma = torch.empty(pts.shape[0], device=dev)
+    for i in range(0, pts.shape[0], chunk):
+        sigma[i:i + chunk].copy_(query(pts=pts[i:i + chunk], t=t))
+    return sigma[:n].cpu().numpy().reshape(xyz_res)
 
 
 def marching_tetrahedra(grid: np.ndarray, threshold: float,
@@ -126,10 +150,15 @@ def write_ply(path, verts, faces):
 
 def export_mesh_density(trainer, bound_min, bound_max, xyz_res, threshold,
                         out_path, t=0.0, log_fn=print):
-    """Grid query -> iso-surface -> PLY."""
-    grid = extract_density_grid(trainer, bound_min, bound_max, xyz_res, t=t)
-    verts, faces = marching_tetrahedra(grid, threshold, bound_min, bound_max)
-    write_ply(out_path, verts, faces)
+    """Grid query -> iso-surface -> PLY, the query and the rest timed
+    apart as the trainer's stages "mesh query" and "mesh iso-surface"."""
+    with trainer.timers.phase("mesh query"):
+        grid = extract_density_grid(trainer, bound_min, bound_max, xyz_res,
+                                    t=t)
+    with trainer.timers.phase("mesh iso-surface"):
+        verts, faces = marching_tetrahedra(grid, threshold, bound_min,
+                                           bound_max)
+        write_ply(out_path, verts, faces)
     if log_fn:
         log_fn(f"[mesh] {len(verts)} verts / {len(faces)} faces -> "
                f"{out_path}")

@@ -107,13 +107,12 @@ def _test(cfg, device, mesh=None):
     with timers.phase("test render"):
         run_test(trainer, test_scene, save_dir=results_dir,
                  name=cfg_run.name, use_refine=cfg_run.use_refine)
-    with timers.phase("mesh"):
-        export_mesh_density(
-            trainer, bound_min=tuple(cfg_run.mesh_bound_min),
-            bound_max=tuple(cfg_run.mesh_bound_max),
-            xyz_res=tuple(cfg_run.mesh_xyz_res),
-            threshold=cfg_run.density_thresh,
-            out_path=os.path.join(results_dir, f"{cfg_run.name}_mesh.ply"))
+    export_mesh_density(
+        trainer, bound_min=tuple(cfg_run.mesh_bound_min),
+        bound_max=tuple(cfg_run.mesh_bound_max),
+        xyz_res=tuple(cfg_run.mesh_xyz_res),
+        threshold=cfg_run.density_thresh,
+        out_path=os.path.join(results_dir, f"{cfg_run.name}_mesh.ply"))
     print(f"[time] stages:\n{timers.report()}", flush=True)
     return trainer
 

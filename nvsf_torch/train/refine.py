@@ -5,12 +5,15 @@ Adam under a OneCycle schedule, random-box masking of its inputs and a
 BCE loss.
 
 As in the reference implementation, the BCE-with-logits loss is taken of
-the U-Net's *sigmoid* output. The random draws of each step (the box mask
-and the U-Net's dropouts) can be injected through ``draws``.
+the U-Net's *sigmoid* output. On the card each step replays the step
+captured as a CUDA graph; on the CPU it runs eagerly, and there the random
+draws of each step (the box mask and the U-Net's dropouts) can be injected
+through ``draws``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from nvsf_torch.models.unet import UNet
+from nvsf_torch.train.graphs import Program
 from nvsf_torch.train.losses import bce_with_logits
 
 
@@ -74,40 +78,129 @@ def random_box_mask(shape, box_num_max=32, frac=0.1, generator=None,
     return (~boxed).to(torch.float32).expand(shape)
 
 
+@contextlib.contextmanager
+def autotuned_convolutions():
+    """cuDNN picks each convolution's algorithm by timing its candidates at
+    the first call of each shape (``cudnn.benchmark``), as XLA autotunes
+    the convolutions of a compiled program; torch keeps the choice for the
+    process, so later eager steps of the shape run it too. The graphed
+    refine step's warm-ups and capture run under it: with cuDNN's
+    heuristics a capture of the refine step sometimes chose other
+    algorithms than its eager steps, one of them cuDNN's FFT convolution,
+    with 32 GiB more in the graph's pool: 137.85 ms a replay at [15, 3, 66,
+    1030] against 74.47 autotuned (NVIDIA H100 80GB HBM3, 700 W;
+    ``tools/ablate_refine_autotune.py``)."""
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+class RefineSteps:
+    """The refine stage's steps: the JAX package's ``step_fn``
+    (``nvsf_tpu/train/refine.py:76-92``) on ``unet`` in training mode, from
+    rendered (raydrop, intensity, depth) ``x_full`` [B, 3, H, W] to the GT
+    raydrop ``gt`` [B, 1, H, W]. Adam with optax's ``scale_by_adam``
+    defaults (0.9, 0.999, eps 1e-8 outside the square root) at the OneCycle
+    rate of each step, held in a device tensor that ``step`` fills in place
+    (``scale_by_schedule``); capturable on the card, where torch keeps its
+    step count on the device too (torch refuses a capturable Adam on the
+    CPU). The box masks and the U-Net's dropouts draw from ``generator``.
+
+    On the card (``graphed`` None or True) each step replays the step
+    captured as a CUDA graph (``train/graphs.py``) after two eager steps,
+    the second under ``set_sync_debug_mode("error")``: all three are steps
+    of the stage, and the generator is registered with the graph. The
+    warm-ups and the capture time the convolutions' algorithms
+    (``autotuned_convolutions``); the replays run what they chose.
+    ``graphed=False`` steps eagerly, the check the graph is held to; draws
+    injected into a step (``draws``) exist on that path only."""
+
+    def __init__(self, unet: UNet, x_full: torch.Tensor, gt: torch.Tensor,
+                 *, steps: int, lr: float, graphed: Optional[bool] = None):
+        dev = x_full.device
+        self.unet, self.x_full, self.gt = unet, x_full, gt
+        self.sched = onecycle_lr(lr, steps)
+        self.opt = torch.optim.Adam(
+            unet.parameters(),
+            lr=torch.tensor(self.sched(0), dtype=torch.float32, device=dev),
+            betas=(0.9, 0.999), eps=1e-8, capturable=dev.type == "cuda")
+        self.generator = torch.Generator(device=dev).manual_seed(0)
+        if graphed is None:
+            graphed = dev.type == "cuda"
+        self.program = None
+        if graphed:
+            self.program = Program(self.body, dev, warmups=2,
+                                   generators=[self.generator],
+                                   held=self.state_tensors)
+
+    @property
+    def lr(self) -> torch.Tensor:
+        """The rate the next step reads."""
+        return self.opt.param_groups[0]["lr"]
+
+    def state_tensors(self):
+        """What a captured step reads and writes at fixed addresses."""
+        out = [self.lr]
+        for p in self.unet.parameters():
+            out += [p, p.grad, *self.opt.state.get(p, {}).values()]
+        return out + list(self.unet.buffers())
+
+    def body(self, draws: Optional[dict] = None) -> torch.Tensor:
+        """One step's device work; returns its loss (a device scalar)."""
+        d = draws or {}
+        x = self.x_full * random_box_mask(
+            self.x_full.shape, generator=self.generator, draws=d.get("mask"),
+            device=self.x_full.device)
+        self.opt.zero_grad(set_to_none=False)
+        loss = bce_with_logits(self.unet(x, d.get("unet"), self.generator),
+                               self.gt).mean()
+        loss.backward()
+        self.opt.step()
+        return loss.detach()
+
+    def step(self, i: int, draws: Optional[dict] = None) -> torch.Tensor:
+        """Step ``i`` of the schedule: its rate filled in place, then the
+        step, replayed where it is captured. Returns the loss, which the
+        next step overwrites on the graphed path."""
+        if self.program is not None and draws is not None:
+            raise ValueError("injected draws exist only on the eager path "
+                             "(graphed=False); the captured step draws "
+                             "from its generator")
+        self.lr.fill_(self.sched(i))
+        if self.program is None:
+            return self.body(draws)
+        if self.program.graph is not None:
+            return self.program()
+        with autotuned_convolutions():
+            return self.program()
+
+
 def refine_raydrop(unet: UNet, unet_input: np.ndarray,
                    raydrop_gt: np.ndarray, *, steps: int = 1000,
                    lr: float = 1e-3, log_fn=None,
                    log_every: int = 50, draws: Optional[list] = None):
     """Train ``unet`` in place on (rendered raydrop, intensity, depth) ->
-    GT raydrop: ``unet_input`` [B, 3, H, W], ``raydrop_gt`` [B, 1, H, W].
-    Adam with optax's ``scale_by_adam`` defaults (0.9, 0.999, eps 1e-8
-    outside the square root) at the OneCycle rate of each step. Returns
-    the loss at every ``log_every``-th step. ``draws[i]`` replaces step i's
-    draws: ``{"mask": random_box_mask draws, "unet": UNet draws}``."""
+    GT raydrop: ``unet_input`` [B, 3, H, W], ``raydrop_gt`` [B, 1, H, W],
+    ``steps`` steps of ``RefineSteps`` (graphed on the card). Returns the
+    loss at every ``log_every``-th step, read on the host there alone.
+    ``draws[i]`` replaces step i's draws (the CPU only): ``{"mask":
+    random_box_mask draws, "unet": UNet draws}``."""
     dev = next(unet.parameters()).device
     x_full = torch.as_tensor(np.asarray(unet_input), dtype=torch.float32,
                              device=dev)
     gt = torch.as_tensor(np.asarray(raydrop_gt), dtype=torch.float32,
                          device=dev)
-    opt = torch.optim.Adam(unet.parameters(), lr=lr, betas=(0.9, 0.999),
-                           eps=1e-8)
-    sched = onecycle_lr(lr, steps)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    rs = RefineSteps(unet, x_full, gt, steps=steps, lr=lr)
     losses = []
     unet.train()
     try:
         for i in range(steps):
-            d = draws[i] if draws is not None else {}
-            x = x_full * random_box_mask(x_full.shape, generator=gen,
-                                         draws=d.get("mask"), device=dev)
-            for group in opt.param_groups:
-                group["lr"] = sched(i)
-            opt.zero_grad(set_to_none=False)
-            loss = bce_with_logits(unet(x, d.get("unet"), gen), gt).mean()
-            loss.backward()
-            opt.step()
+            loss = rs.step(i, draws[i] if draws is not None else None)
             if i % log_every == 0:
-                lv = float(loss.detach())
+                lv = float(loss)
                 losses.append(lv)
                 if log_fn:
                     log_fn(f"[refine] iter {i} loss {lv:.5f}")

@@ -8,8 +8,9 @@ step's ~10,000 small kernels costs more than their device time.
 step and one for the patch step, sharing one memory pool (they never run
 together). ``step(fi, patch)`` writes the frame index into the trainer's
 static input (an int64 device scalar), replays the mode's graph and
-returns its static outputs, the loss and its parts: the next replay
-overwrites them, so a caller adds them up before it steps again. A replay
+returns its outputs, the loss and its parts, copied out of the pool: the
+next replay overwrites them, so a caller adds them up before it steps
+again. A replay
 runs ``Trainer.step_body``: gradients zeroed in place, forward, backward,
 NaN gradients zeroed, capturable Adam, the error-map rows (under an NCCL
 mesh also the gradient all-reduce and the rows' broadcast). The host keeps
@@ -36,37 +37,21 @@ would hand their memory to other tensors. The trainer's generator is
 registered with each graph, so that every replay draws new rays and noise
 from it.
 
-The kernel wrappers count their launches in Python, which a replay does
-not run: the launches a capture recorded (``kernels.LAUNCHES``) and the
-collectives it issued (``Mesh.collectives``) are counted once at capture,
-taken back out, and added per replay.
+Each mode is a ``train/graphs.py::Program``, which does the warm-ups, the
+capture and the replays, and counts a replay's kernel launches and mesh
+collectives (``kernels.LAUNCHES``, ``Mesh.collectives``) as its capture
+recorded them.
 """
 
 from __future__ import annotations
 
-import copy
-import time
-from dataclasses import dataclass
 from typing import Dict
 
 import torch
 
-from nvsf_torch.ops import kernels
+from nvsf_torch.train.graphs import Program
 
 WARMUP_STEPS = 2
-
-
-@dataclass
-class _Captured:
-    graph: "torch.cuda.CUDAGraph"
-    outputs: Dict[str, torch.Tensor]
-    launches: Dict[str, int]
-    collectives: Dict[str, Dict[str, int]]
-
-
-def _collectives_delta(after, before):
-    return {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v}
-            for k, v in after.items()}
 
 
 class StepGraphs:
@@ -93,12 +78,28 @@ class StepGraphs:
         self.trainer = trainer
         self.stream = torch.cuda.Stream(trainer.device)
         self.pool = torch.cuda.graph_pool_handle()
-        self.graphs: Dict[bool, _Captured] = {}
-        self.warm = {False: 0, True: 0}
-        self.replays = {False: 0, True: 0}
-        self.capture_s: Dict[bool, float] = {}
+        self.modes = {patch: Program(
+            lambda patch=patch: trainer.step_body(trainer._fi, patch),
+            trainer.device, warmups=WARMUP_STEPS,
+            generators=[trainer.generator], held=self._state_tensors,
+            counters=[mesh.collectives] if mesh is not None else [],
+            pool=self.pool, stream=self.stream) for patch in (False, True)}
         self._grads = None      # the .grad tensors the graphs write
-        self._state = None      # the state tensors they read, by name
+
+    @property
+    def graphs(self) -> Dict[bool, "torch.cuda.CUDAGraph"]:
+        """The captured modes' graphs."""
+        return {m: p.graph for m, p in self.modes.items()
+                if p.graph is not None}
+
+    @property
+    def replays(self) -> Dict[bool, int]:
+        return {m: p.replays for m, p in self.modes.items()}
+
+    @property
+    def capture_s(self) -> Dict[bool, float]:
+        return {m: p.capture_s for m, p in self.modes.items()
+                if p.capture_s is not None}
 
     def _state_tensors(self) -> Dict[str, torch.Tensor]:
         tr = self.trainer
@@ -112,90 +113,24 @@ class StepGraphs:
                 named[f"adam {k} {i}"] = v
         return named
 
-    def _hold(self) -> None:
-        """Put the captured gradients back and refuse replaced state."""
+    def _hold_grads(self) -> None:
+        """Put the gradients the graphs write back into ``.grad``."""
         params = list(self.trainer.field.parameters())
         if self._grads is None:
             self._grads = [torch.zeros_like(p) if p.grad is None else p.grad
                            for p in params]
-            self._state = self._state_tensors()
         for p, g in zip(params, self._grads):
             if p.grad is not g:
                 p.grad = g
-        now = self._state_tensors()
-        moved = [k for k, t in self._state.items() if now.get(k) is not t]
-        if moved or len(now) != len(self._state):
-            raise RuntimeError(
-                f"the captured steps read {moved or 'state'} at addresses "
-                "that were replaced since the capture; call "
-                "Trainer.drop_step_graphs() after replacing trainer state")
 
     def step(self, fi: int, patch: bool) -> Dict[str, torch.Tensor]:
-        """One step of frame ``fi``: a replay once the mode is captured;
-        its metrics are the graph's static outputs."""
+        """One step of frame ``fi``: a replay once the mode is captured,
+        whose metrics the next replay overwrites."""
         tr = self.trainer
         tr._fi.fill_(int(fi))
-        patch = bool(patch)
-        if patch not in self.graphs and self.warm[patch] >= WARMUP_STEPS:
-            self.graphs[patch] = self._capture(patch)
-        if patch in self.graphs:
-            cap = self.graphs[patch]
-            self._hold()
-            cap.graph.replay()
-            self.replays[patch] += 1
-            for k, n in cap.launches.items():
-                kernels.LAUNCHES[k] += n
-            if tr.mesh is not None:
-                for k, c in cap.collectives.items():
-                    mine = tr.mesh.collectives.setdefault(
-                        k, {"calls": 0, "bytes": 0})
-                    for f, v in c.items():
-                        mine[f] += v
-            out = cap.outputs
-        else:
-            out = self._warmup(patch)
+        prog = self.modes[bool(patch)]
+        if not prog.warming:
+            self._hold_grads()
+        out = prog()
         tr.end_step()
         return out
-
-    def _warmup(self, patch: bool) -> Dict[str, torch.Tensor]:
-        tr = self.trainer
-        self.warm[patch] += 1
-        checked = self.warm[patch] == WARMUP_STEPS
-        mode = torch.cuda.get_sync_debug_mode()
-        self.stream.wait_stream(torch.cuda.current_stream())
-        try:
-            with torch.cuda.stream(self.stream):
-                if checked:
-                    torch.cuda.set_sync_debug_mode("error")
-                out = tr.step_body(tr._fi, patch)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.current_stream().wait_stream(self.stream)
-        return out
-
-    def _capture(self, patch: bool) -> _Captured:
-        tr = self.trainer
-        mesh = tr.mesh
-        launches0 = dict(kernels.LAUNCHES)
-        coll0 = copy.deepcopy(mesh.collectives) if mesh is not None else {}
-        self._hold()
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(tr.generator)
-        torch.cuda.synchronize(tr.device)
-        t0 = time.perf_counter()
-        # thread_local: an NCCL watchdog thread's event queries do not
-        # break the capture
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            outputs = tr.step_body(tr._fi, patch)
-        torch.cuda.synchronize(tr.device)
-        self.capture_s[patch] = time.perf_counter() - t0
-        launches = {k: kernels.LAUNCHES[k] - launches0[k]
-                    for k in kernels.LAUNCHES}
-        kernels.LAUNCHES.update(launches0)
-        collectives = {}
-        if mesh is not None:
-            collectives = _collectives_delta(mesh.collectives, coll0)
-            mesh.collectives.clear()
-            mesh.collectives.update(coll0)
-        return _Captured(graph, outputs, launches, collectives)

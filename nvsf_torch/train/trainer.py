@@ -22,7 +22,9 @@ branches render in one ``Renderer.run_joint`` pass, as there:
     ``occ_update_interval`` steps, outside the step: between the scanned
     epoch's dispatches (``train_one_epoch(use_scan=True)``, the default;
     on the card each step replays a captured CUDA graph,
-    ``train/step_graph.py``), or after each step (``use_scan=False``).
+    ``train/step_graph.py``), or after each step (``use_scan=False``); on
+    the card each refresh replays a captured CUDA graph
+    (``train/graphs.py``).
 
 Every random draw of a step can be injected through ``draws`` (see
 ``loss_and_grads``), so tests can replay the JAX package's draws.
@@ -65,6 +67,7 @@ from nvsf_torch.render import sweep
 from nvsf_torch.render.renderer import Renderer
 from nvsf_torch.train import checkpoint as ckpt
 from nvsf_torch.train import losses as L
+from nvsf_torch.train.graphs import Program
 from nvsf_torch.train.profiler import PhaseTimers, device_trace
 from nvsf_torch.train.refine import apply_refinement, refine_raydrop
 
@@ -278,6 +281,10 @@ class Trainer:
             if self.occ is not None:
                 self.occ_grid_rgb = self.occ.init(dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+        # the occupancy refresh's draws: one generator, reseeded in place
+        # before each refresh, so that its captured graph (registered with
+        # it) draws what an eager refresh draws from the same seed
+        self.occ_generator = torch.Generator(device=dev)
         self._order_rng = np.random.default_rng(seed)
         # the step's frame index and global step as device scalars: the
         # host fills them before each step, so a captured step reads them
@@ -286,6 +293,9 @@ class Trainer:
         self._step_t = torch.zeros((), dtype=torch.int64, device=dev)
         # the captured steps (on the card, made by the first scanned epoch)
         self.step_graphs = None
+        # the other captured programs on the card (``train/graphs.py``): the
+        # refresh and the mesh export's density query, by key
+        self.programs: Dict[tuple, Program] = {}
         self.epoch = 0
         self.global_step = 0
         self.stats = {"results": [], "best_result": None}
@@ -320,11 +330,12 @@ class Trainer:
 
     def drop_step_graphs(self) -> None:
         """Forget the captured steps (the next scanned epoch captures
-        anew) and both renderers' captured frame renders, which frees their
-        memory pools: a graph reads every tensor at the address it had at
-        capture, and a load installs new error maps, grids and Adam
-        moments."""
+        anew), the captured refresh and density query and both renderers'
+        captured frame renders, which frees their memory pools: a graph
+        reads every tensor at the address it had at capture, and a load
+        installs new error maps, grids and Adam moments."""
         self.step_graphs = None
+        self.programs.clear()
         self.renderer.drop_frame_graphs()
         self.ema_renderer.drop_frame_graphs()
 
@@ -772,10 +783,7 @@ class Trainer:
                 for k, v in metrics.items():
                     sums[k] = sums[k] + v if k in sums else v.clone()
             self.maybe_update_occ()
-        with torch.no_grad():
-            decay = cfg.ema_decay
-            for k, p in self.field.named_parameters():
-                self.ema[k].mul_(decay).add_(p.detach(), alpha=1 - decay)
+        self.update_ema()
         self.maybe_update_occ()
         parts = {k: float(v) / len(order) for k, v in sums.items()}
         return EpochStats(loss=parts["loss"], parts=parts)
@@ -803,6 +811,18 @@ class Trainer:
                                       if k != "loss"))
         return stats
 
+    @torch.no_grad()
+    def update_ema(self) -> None:
+        """The JAX package's ``_update_ema`` (``nvsf_tpu/train/trainer.py:
+        262-265``): ema = decay * ema + (1 - decay) * params over every
+        parameter, as two multi-tensor kernels."""
+        decay = self.cfg.ema_decay
+        named = list(self.field.named_parameters())
+        ema = [self.ema[k] for k, _ in named]
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, [p.detach() for _, p in named],
+                            alpha=1 - decay)
+
     def _occ_refresh_times(self, generator):
         """Stratified, jittered query times over the scene's time span."""
         S = max(int(self.cfg.occ_time_samples), 1)
@@ -824,27 +844,59 @@ class Trainer:
             return
         self._last_occ_update = tick
         self.occ_refresh_count += 1
-        self.refresh_occupancy(torch.Generator(device=self.device)
-                               .manual_seed(0xACC + self.global_step))
+        self.refresh_occupancy(0xACC + self.global_step)
 
-    def refresh_occupancy(self, generator) -> None:
-        """One refresh of every grid at stratified times (on every rank of
-        a mesh, which then takes rank 0's grids: duplicate cells of the
-        refresh take any of their writes)."""
-        ts = self._occ_refresh_times(generator)
+    def refresh_occupancy(self, seed: int,
+                          graphed: Optional[bool] = None) -> None:
+        """One refresh of every grid at stratified times, its draws from
+        ``occ_generator`` seeded with ``seed`` (on every rank of a mesh,
+        which then takes rank 0's grids: duplicate cells of the refresh
+        take any of their writes). On the card (``graphed`` None or True)
+        it replays the refresh captured as a CUDA graph, keyed by the grid
+        spec and the branches (a replay refuses grids or parameters
+        replaced since its capture); ``graphed=False`` is the eager refresh
+        the graph is held to."""
+        graphed = self.device.type == "cuda" if graphed is None else graphed
+        self.occ_generator.manual_seed(int(seed))
+        if graphed:
+            self._refresh_program()()
+        else:
+            self._refresh_body()
+        if self.mesh is not None:
+            replicate(self.mesh, self._occ_grids(), "occupancy grid")
+
+    def _occ_grids(self):
+        return [g for g in (self.occ_grid_lidar, self.occ_grid_rgb)
+                if g is not None]
+
+    def _refresh_body(self) -> None:
+        """The refresh's device work (JAX's ``_occ_update`` of each grid):
+        the query times, then each grid's cells, jitter and update, in that
+        order of draws; each grid is written in place, as a captured step
+        and the frame graphs read it at its address."""
+        gen = self.occ_generator
+        ts = self._occ_refresh_times(gen)
         for branch, lidar in (("lidar", True), ("rgb", False)):
             grid = getattr(self, f"occ_grid_{branch}")
             if grid is None:
                 continue
-            # in place: a captured step reads the grid at its address
             grid.copy_(self.occ.update(
                 grid, lambda p, tt, lidar=lidar: self.field.density(
                     p, tt, cal_lidar_color=lidar, skip_warp=True)["sigma"],
-                ts, generator=generator))
-        if self.mesh is not None:
-            replicate(self.mesh, [g for g in (self.occ_grid_lidar,
-                                              self.occ_grid_rgb)
-                                  if g is not None], "occupancy grid")
+                ts, generator=gen))
+
+    def _refresh_program(self) -> Program:
+        key = ("refresh", dataclasses.astuple(self.occ),
+               self.occ_grid_lidar is not None, self.occ_grid_rgb is not None)
+        if key not in self.programs:
+            self.programs[key] = Program(
+                self._refresh_body, self.device,
+                generators=[self.occ_generator],
+                held=lambda: {**{k: getattr(self, k) for k in (
+                    "occ_grid_lidar", "occ_grid_rgb")
+                    if getattr(self, k) is not None},
+                    **dict(self.field.named_parameters())})
+        return self.programs[key]
 
     # ------------------------------------------------------------------
     # eval renders (``nvsf_tpu/train/trainer.py:624-666, 811-863, 913-921``)

@@ -298,10 +298,13 @@ def test_replayed_steps_match_eager_steps_across_a_refresh(dev):
     warm-ups, the capture, two replays) against eager steps of a second
     trainer on the same state and generator state: equal losses and
     gradients (1e-5 of each gradient's max: B1/B2 and B4 sum by atomics),
-    a grid refresh between the replays read by the next one, launches
-    counted per replay."""
+    a grid refresh between the replays read by the next one (the graphed
+    trainer's captured refresh, after its eager warm-up, against the eager
+    trainer's eager refresh), launches counted per replay."""
     from nvsf_torch.train.step_graph import WARMUP_STEPS
     g, e = _graph_pair()
+    refresh = e.refresh_occupancy
+    e.refresh_occupancy = lambda seed: refresh(seed, graphed=False)
     counts = {"g": {}, "e": {}}
 
     def counted(who, fn, *args):
@@ -327,6 +330,8 @@ def test_replayed_steps_match_eager_steps_across_a_refresh(dev):
     sg = g.step_graphs
     assert list(sg.graphs) == [False] and sg.replays[False] == 5 - WARMUP_STEPS
     assert g.occ_refresh_count == 2 and g.global_step == 5
+    prog, = g.programs.values()
+    assert (prog.warm, prog.replays) == (1, 1) and not e.programs
     # a replay counts the launches its capture recorded
     assert counts["g"] == counts["e"] and counts["g"]["multihot_bwd"] > 0, \
         counts
@@ -579,3 +584,150 @@ def test_load_drops_the_frame_graphs(dev, tmp_path):
         np.testing.assert_allclose(after[k], before[k], rtol=0, err_msg=k,
                                    atol=1e-6 * np.abs(before[k]).max())
     assert not np.array_equal(ema["depth"], before["depth"])
+
+
+# ----------------------------------------------------------------------
+# the refresh, the refine step and the mesh export's density query, each
+# captured as a CUDA graph (train/graphs.py), against their eager versions
+# ----------------------------------------------------------------------
+
+def test_graphed_refresh_matches_eager_refresh(dev):
+    """Four refreshes of the toy trainer's grids from four seeds, graphed
+    (an eager warm-up, then the capture and replays) against the eager
+    refresh from the same seed and grids: the grids within 1e-6 of their
+    max, the same launches counted (a replay counts its capture's)."""
+    g, _ = _graph_pair()
+    grids = g._occ_grids()
+    for seed in range(4):
+        saved = [x.clone() for x in grids]
+        kernels.reset_launch_counts()
+        g.refresh_occupancy(seed)
+        graphed = dict(kernels.LAUNCHES)
+        got = [x.clone() for x in grids]
+        for x, s in zip(grids, saved):
+            x.copy_(s)
+        kernels.reset_launch_counts()
+        g.refresh_occupancy(seed, graphed=False)
+        assert kernels.LAUNCHES == graphed and graphed["multihot_fwd"] > 0
+        for a, b, s in zip(got, grids, saved):
+            assert not torch.equal(b, s)
+            assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    prog, = g.programs.values()
+    assert (prog.warm, prog.replays) == (1, 3)
+
+
+@torch.no_grad()
+def _sync_refine(src, dst):
+    for p, q in zip(src.unet.parameters(), dst.unet.parameters()):
+        q.copy_(p)
+        for k, v in src.opt.state.get(p, {}).items():
+            dst.opt.state[q][k].copy_(v)
+    for a, b in zip(src.unet.buffers(), dst.unet.buffers()):
+        b.copy_(a)
+    dst.generator.set_state(src.generator.get_state())
+
+
+def test_graphed_refine_steps_match_eager_steps(dev):
+    """Six f32 refine steps of a small U-Net, graphed (two eager warm-ups,
+    the capture, replays) against eager steps of a copy given the graphed
+    one's state and generator state before each step: loss, gradients and
+    BatchNorm statistics within 1e-5 of each tensor's max (cuDNN's and
+    the bilinear upsampling's backward may sum in another order), and the
+    parameters and Adam moments within 1e-5 after the eager Adam step is
+    taken again on the replay's gradients (Adam's m / (sqrt(v) + 1e-8)
+    turns a summation-order difference in a gradient near 1e-8 into one
+    the size of the rate); injected draws raise on the graphed path."""
+    import copy
+    from nvsf_torch.models.unet import UNet
+    from nvsf_torch.train.refine import RefineSteps
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = torch.Generator().manual_seed(0)
+        x = torch.rand((2, 3, 32, 64), generator=cpu).to(dev)
+        gt = (torch.rand((2, 1, 32, 64), generator=cpu) > 0.4).float().to(dev)
+        unet = UNet(3, 8, 1, generator=cpu).to(dev).train()
+        g = RefineSteps(unet, x, gt, steps=100, lr=1e-3)
+        e = RefineSteps(copy.deepcopy(unet), x, gt, steps=100, lr=1e-3,
+                        graphed=False)
+        for i in range(6):
+            _sync_refine(g, e)
+            snap = [(q.detach().clone(), {k: v.clone() for k, v in
+                                          e.opt.state.get(q, {}).items()})
+                    for q in e.unet.parameters()]
+            lg, le = float(g.step(i)), float(e.step(i))
+            assert abs(lg - le) <= 1e-5 * abs(le), (i, lg, le)
+            pairs = list(zip(g.unet.parameters(), e.unet.parameters()))
+            for p, q in pairs:
+                _close(p.grad, q.grad, q.grad)
+            for a, b in zip(g.unet.buffers(), e.unet.buffers()):
+                _close(a, b, b)
+            with torch.no_grad():
+                for (p, q), (q0, st0) in zip(pairs, snap):
+                    q.copy_(q0)
+                    q.grad.copy_(p.grad)
+                    for k, v in e.opt.state[q].items():
+                        v.copy_(st0[k]) if k in st0 else v.zero_()
+                e.opt.step()
+            for p, q in pairs:
+                _close(p.detach(), q.detach(), q.detach())
+                for k, v in g.opt.state[p].items():
+                    _close(v, e.opt.state[q][k], e.opt.state[q][k])
+        assert (g.program.warm, g.program.replays) == (2, 4)
+        assert float(g.lr) == pytest.approx(g.sched(5))
+        with pytest.raises(ValueError, match="injected draws"):
+            g.step(6, draws={})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_graphed_density_query_matches_eager(dev):
+    """The mesh export's density query of a 40 x 30 x 20 grid in chunks of
+    4096 (the last padded), graphed (the first chunk its eager warm-up)
+    against eager: sigma within 1e-6 of its max, the same launches
+    counted."""
+    from nvsf_torch.render.export import extract_density_grid
+    tr = _render_trainer()
+    kw = dict(bound_min=(-0.5, -0.5, -0.2), bound_max=(0.5, 0.5, 0.2),
+              xyz_res=(40, 30, 20), chunk=4096)
+    kernels.reset_launch_counts()
+    got = extract_density_grid(tr, **kw)
+    graphed = dict(kernels.LAUNCHES)
+    kernels.reset_launch_counts()
+    ref = extract_density_grid(tr, graphed=False, **kw)
+    assert kernels.LAUNCHES == graphed and graphed["multihot_fwd"] > 0
+    assert got.shape == (40, 30, 20) and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+    prog = tr.programs[("density query", 4096, True)]
+    assert (prog.warm, prog.replays) == (1, 5)
+
+
+def test_load_drops_the_refresh_and_query_graphs(dev, tmp_path):
+    """A load replaces the grids and parameters these graphs read, so it
+    drops them; the next refresh warms up and captures anew. A replay
+    refuses a grid replaced since its capture, and a parameter whose
+    storage was."""
+    from nvsf_torch.render.export import extract_density_grid
+    g, _ = _graph_pair()
+    g.cfg.workspace = g.workspace = str(tmp_path)
+    for seed in (1, 2):
+        g.refresh_occupancy(seed)
+        extract_density_grid(g, (-0.5,) * 3, (0.5,) * 3, (8, 8, 8),
+                             chunk=256)
+    assert len(g.programs) == 2
+    g.save_checkpoint(full=True)
+    assert g.load_checkpoint("latest")
+    assert g.programs == {}
+    for seed in (3, 4):
+        g.refresh_occupancy(seed)
+    prog, = g.programs.values()
+    assert (prog.warm, prog.replays) == (1, 1)
+    grid = g.occ_grid_lidar
+    g.occ_grid_lidar = grid.clone()
+    with pytest.raises(RuntimeError, match="occ_grid_lidar"):
+        g.refresh_occupancy(5)
+    g.occ_grid_lidar = grid
+    p = next(g.field.parameters())
+    p.data = p.data.clone()
+    with pytest.raises(RuntimeError, match="replaced"):
+        g.refresh_occupancy(5)

@@ -93,9 +93,9 @@ def _port_refreshes(steps, interval, epochs, use_scan):
     seen = []
     refresh = tr.refresh_occupancy
 
-    def record(generator):
+    def record(seed):
         seen.append(tr.global_step)
-        refresh(generator)
+        refresh(seed)
 
     tr.refresh_occupancy = record
     for ep in range(1, epochs + 1):

@@ -150,9 +150,9 @@ def scan_refreshes(mesh, cfg, spec, steps, epochs):
     seen = []
     refresh = tr.refresh_occupancy
 
-    def record(generator):
+    def record(seed):
         seen.append(tr.global_step)
-        refresh(generator)
+        refresh(seed)
 
     tr.refresh_occupancy = record
     for ep in range(1, epochs + 1):
