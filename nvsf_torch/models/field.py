@@ -23,6 +23,7 @@ from nvsf_torch.models.flow import FlowField
 from nvsf_torch.models.hash_grid import HashGrid4D
 from nvsf_torch.models.mlp import MLP
 from nvsf_torch.models.planes import Planes4D
+from nvsf_torch.train.profiler import span, traced
 
 
 class _TruncExp(torch.autograd.Function):
@@ -41,6 +42,14 @@ class _TruncExp(torch.autograd.Function):
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
     """exp with its gradient taken at clamp(x, -15, 15)."""
     return _TruncExp.apply(x)
+
+
+def _blend(has_next, has_prev, q_d, q_1, q_2):
+    """The ±1-frame blend 0.5 q + 0.25 (q_next + q_prev), a missing
+    neighbour frame's query replaced by q."""
+    q_1 = torch.where(has_next, q_1, q_d)
+    q_2 = torch.where(has_prev, q_2, q_d)
+    return 0.5 * q_d + 0.25 * (q_1 + q_2)
 
 
 @dataclass(frozen=True)
@@ -171,44 +180,50 @@ class NVSFField(nn.Module):
         prec = self.table_grad_precision
         nf = self.spec.num_frames
         b = self.spec.bound
+        dev = x.device
 
         xn = (x + b) / (2 * b)
         t = self._scalar_time(t, x)
         frame_idx = torch.floor(t * (nf - 1))
         N = xn.shape[0]
-        hash_s = hashes.apply_static(xn, prec)
         xt = torch.cat([xn, t.expand(N, 1)], dim=-1)
 
         if skip_warp:
-            hash_d = hashes.apply_dynamic(xn, t, prec)
-            plane_s = planes.apply_static(xt)
-            plane_d = planes.apply_dynamic(xt)
+            with span("encode.hash", dev, backward=True) as s:
+                hash_s, hash_d = s.out((hashes.apply_static(xn, prec),
+                                        hashes.apply_dynamic(xn, t, prec)))
+            with span("encode.planes", dev, backward=True) as s:
+                plane_s, plane_d = s.out((planes.apply_static(xt),
+                                          planes.apply_dynamic(xt)))
         else:
             flow = self.flow(xt, compute_dtype, prec)
-            # warp times are (frame_idx ± 1) / num_frames, as upstream
-            t1 = (frame_idx + 1) / nf
-            t2 = (frame_idx - 1) / nf
-            x1 = xn + flow[:, :3]
-            x2 = xn + flow[:, 3:]
-            has_next = frame_idx < nf - 1
-            has_prev = frame_idx > 0
-            hash_d, hash_1, hash_2 = hashes.apply_dynamic_fused3(
-                xn, x1, x2, t, t1, t2, prec)
-            ts3 = torch.stack([t, t1, t2])
-            xts = torch.cat([torch.stack([xn, x1, x2]),
-                             ts3[:, None, None].expand(3, N, 1)], dim=-1)
-            plane_s = planes.apply_static(xt)
-            plane_d, plane_1, plane_2 = planes.apply_dynamic_multi(xts)
-            hash_1 = torch.where(has_next, hash_1, hash_d)
-            plane_1 = torch.where(has_next, plane_1, plane_d)
-            hash_2 = torch.where(has_prev, hash_2, hash_d)
-            plane_2 = torch.where(has_prev, plane_2, plane_d)
-            plane_d = 0.5 * plane_d + 0.25 * (plane_1 + plane_2)
-            hash_d = 0.5 * hash_d + 0.25 * (hash_1 + hash_2)
+            with span("encode.hash", dev, backward=True) as s:
+                # warp times are (frame_idx ± 1) / num_frames, as upstream
+                t1 = (frame_idx + 1) / nf
+                t2 = (frame_idx - 1) / nf
+                x1 = xn + flow[:, :3]
+                x2 = xn + flow[:, 3:]
+                has_next = frame_idx < nf - 1
+                has_prev = frame_idx > 0
+                hash_s = hashes.apply_static(xn, prec)
+                hash_d = _blend(has_next, has_prev,
+                                *hashes.apply_dynamic_fused3(
+                                    xn, x1, x2, t, t1, t2, prec))
+                hash_s, hash_d = s.out((hash_s, hash_d))
+            with span("encode.planes", dev, backward=True) as s:
+                ts3 = torch.stack([t, t1, t2])
+                xts = torch.cat([torch.stack([xn, x1, x2]),
+                                 ts3[:, None, None].expand(3, N, 1)], dim=-1)
+                plane_s = planes.apply_static(xt)
+                plane_d = _blend(has_next, has_prev,
+                                 *planes.apply_dynamic_multi(xts))
+                plane_s, plane_d = s.out((plane_s, plane_d))
 
-        h = self.sigma_net(torch.cat([plane_s, plane_d, hash_s, hash_d], -1),
-                           compute_dtype).to(torch.float32)
-        return {"sigma": trunc_exp(h[..., 0]), "geo_feat": h[..., 1:]}
+        with span("mlp", dev, backward=True) as s:
+            h = self.sigma_net(torch.cat([plane_s, plane_d, hash_s, hash_d],
+                                         -1), compute_dtype).to(torch.float32)
+            return s.out({"sigma": trunc_exp(h[..., 0]),
+                          "geo_feat": h[..., 1:]})
 
     def density_joint(self, x_l, x_c, t, compute_dtype=torch.float32,
                       x_flow_extra=None):
@@ -228,14 +243,12 @@ class NVSFField(nn.Module):
         prec = self.table_grad_precision
         nf = self.spec.num_frames
         b = self.spec.bound
+        dev = x_l.device
         N_l, N_c = x_l.shape[0], x_c.shape[0]
         xn_l = (x_l + b) / (2 * b)
         xn_c = (x_c + b) / (2 * b)
         t = self._scalar_time(t, x_l)
         frame_idx = torch.floor(t * (nf - 1))
-
-        hash_s_l, hash_s_c = HashGrid4D.apply_static_joint(
-            hashes, [xn_l, xn_c], prec)
 
         xn_all = [xn_l, xn_c]
         if x_flow_extra is not None:
@@ -250,41 +263,44 @@ class NVSFField(nn.Module):
         t2 = (frame_idx - 1) / nf
         has_next = frame_idx < nf - 1
         has_prev = frame_idx > 0
-        qs = [(xn, xn + fl[:, :3], xn + fl[:, 3:])
-              for xn, fl in ((xn_l, flow_l), (xn_c, flow_c))]
-        hq_l, hq_c = HashGrid4D.apply_dynamic_fused3_joint(
-            hashes, qs, t, t1, t2, prec)
-        plane_s_l, plane_s_c = Planes4D.apply_static_joint(
-            planes, [xt_all[:N_l], xt_all[N_l:N_l + N_c]])
-        ts3 = torch.stack([t, t1, t2])
-        pq_l, pq_c = Planes4D.apply_dynamic_multi_branches(planes, [
-            torch.cat([torch.stack(q), ts3[:, None, None].expand(
-                3, q[0].shape[0], 1)], dim=-1) for q in qs])
 
-        def blend(pq, hq):
-            (p_d, p_1, p_2), (h_d, h_1, h_2) = pq, hq
-            h_1 = torch.where(has_next, h_1, h_d)
-            p_1 = torch.where(has_next, p_1, p_d)
-            h_2 = torch.where(has_prev, h_2, h_d)
-            p_2 = torch.where(has_prev, p_2, p_d)
-            return (0.5 * p_d + 0.25 * (p_1 + p_2),
-                    0.5 * h_d + 0.25 * (h_1 + h_2))
+        def blend(q):
+            return _blend(has_next, has_prev, *q)
 
-        plane_d_l, hash_d_l = blend(pq_l, hq_l)
-        plane_d_c, hash_d_c = blend(pq_c, hq_c)
-        h = self.sigma_net(torch.cat([
-            torch.cat([plane_s_l, plane_d_l, hash_s_l, hash_d_l], -1),
-            torch.cat([plane_s_c, plane_d_c, hash_s_c, hash_d_c], -1)]),
-            compute_dtype).to(torch.float32)
-        sigma = trunc_exp(h[..., 0])
-        out = {"sigma_l": sigma[:N_l], "geo_feat_l": h[:N_l, 1:],
-               "sigma_c": sigma[N_l:], "geo_feat_c": h[N_l:, 1:]}
+        with span("encode.hash", dev, backward=True) as s:
+            qs = [(xn, xn + fl[:, :3], xn + fl[:, 3:])
+                  for xn, fl in ((xn_l, flow_l), (xn_c, flow_c))]
+            hash_s_l, hash_s_c = HashGrid4D.apply_static_joint(
+                hashes, [xn_l, xn_c], prec)
+            hq_l, hq_c = HashGrid4D.apply_dynamic_fused3_joint(
+                hashes, qs, t, t1, t2, prec)
+            hash_s_l, hash_s_c, hash_d_l, hash_d_c = s.out(
+                (hash_s_l, hash_s_c, blend(hq_l), blend(hq_c)))
+        with span("encode.planes", dev, backward=True) as s:
+            plane_s_l, plane_s_c = Planes4D.apply_static_joint(
+                planes, [xt_all[:N_l], xt_all[N_l:N_l + N_c]])
+            ts3 = torch.stack([t, t1, t2])
+            pq_l, pq_c = Planes4D.apply_dynamic_multi_branches(planes, [
+                torch.cat([torch.stack(q), ts3[:, None, None].expand(
+                    3, q[0].shape[0], 1)], dim=-1) for q in qs])
+            plane_s_l, plane_s_c, plane_d_l, plane_d_c = s.out(
+                (plane_s_l, plane_s_c, blend(pq_l), blend(pq_c)))
+
+        with span("mlp", dev, backward=True) as s:
+            h = self.sigma_net(torch.cat([
+                torch.cat([plane_s_l, plane_d_l, hash_s_l, hash_d_l], -1),
+                torch.cat([plane_s_c, plane_d_c, hash_s_c, hash_d_c], -1)]),
+                compute_dtype).to(torch.float32)
+            sigma = trunc_exp(h[..., 0])
+            out = s.out({"sigma_l": sigma[:N_l], "geo_feat_l": h[:N_l, 1:],
+                         "sigma_c": sigma[N_l:], "geo_feat_c": h[N_l:, 1:]})
         if x_flow_extra is not None:
             fe = flow_all[N_l + N_c:]
             out["flow_extra"] = {"flow_forward": fe[:, :3],
                                  "flow_backward": fe[:, 3:]}
         return out
 
+    @traced("mlp")
     def color(self, x, d, geo_feat, cal_lidar_color=False, mask=None,
               compute_dtype=torch.float32):
         """d: [N, 3] view dirs in [-1, 1] -> LiDAR [N, 2] (raydrop,

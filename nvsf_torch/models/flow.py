@@ -9,6 +9,7 @@ import torch.nn as nn
 
 from nvsf_torch.models.hash_grid import HashEncoding, lagrange_fold_table
 from nvsf_torch.models.mlp import MLP
+from nvsf_torch.train.profiler import traced
 
 
 class FlowField(nn.Module):
@@ -28,6 +29,7 @@ class FlowField(nn.Module):
         self.mlp = MLP(self.enc.n_output_dims // num_basis, hidden_dim, 6,
                        num_layers, last_init_std=1e-3, generator=generator)
 
+    @traced("encode.flow")
     def forward(self, xt: torch.Tensor, compute_dtype=torch.float32,
                 precision: str = "f32") -> torch.Tensor:
         """xt: [N, 4] in [0,1] (xyz + one shared t) -> flow [N, 6]."""

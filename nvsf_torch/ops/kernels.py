@@ -14,11 +14,12 @@ where it launches its kernel, and nowhere else. ``segment_add`` counts
 every launch of the segment-add kernel, ``segment_add_f32`` those of its
 f32 variant (B2) again; ``graph_if`` the conditional IF nodes that the
 frame graphs capture (``csrc/graph_cond.cu``, each with a one-thread
-kernel that sets the node's condition). A launch inside the body of an IF
-node runs only where the device decides so: the body adds it to a
-counter on the device (``device_launch_counter``), and ``launch_counts``
-reads those counters into ``LAUNCHES``. Read the counts through
-``launch_counts()``.
+kernel that sets the node's condition). The span markers
+(``csrc/spans.cu``, launched by ``train/profiler.py``) are not counted.
+A launch inside the body of an IF node runs only where the device decides
+so: the body adds it to a counter on the device
+(``device_launch_counter``), and ``launch_counts`` reads those counters
+into ``LAUNCHES``. Read the counts through ``launch_counts()``.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ _SIGNATURES = {
     "nvsf_min_dist2": (_P, _I64, _P, _P, _I64, _P, _P),
     "nvsf_graph_begin_if": (_P, _P, _P, _I),
     "nvsf_graph_end_if": (_P,),
+    "nvsf_span_mark": (_P, _I, _I),
 }
 
 _lock = threading.Lock()

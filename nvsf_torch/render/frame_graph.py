@@ -78,6 +78,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from nvsf_torch.ops import kernels
+from nvsf_torch.train.graphs import capture
 
 # cudaStreamCaptureModeThreadLocal, as the captures' own mode
 _THREAD_LOCAL = 1
@@ -270,9 +271,9 @@ class FrameGraphs:
         t0 = time.perf_counter()
         self.capturing = True
         try:
-            with torch.cuda.graph(graph, pool=self.pools.graph,
-                                  stream=self.pools.capture_stream,
-                                  capture_error_mode="thread_local"):
+            with capture(graph, pool=self.pools.graph,
+                         stream=self.pools.capture_stream,
+                         capture_error_mode="thread_local"):
                 for o, x in zip(outputs, pytree.tree_leaves(fn(**static))):
                     o.copy_(x)
         finally:

@@ -25,6 +25,7 @@ from nvsf_torch.lib.constants import device_constant
 from nvsf_torch.models.field import NVSFField
 from nvsf_torch.ops.occupancy import OccupancyGrid
 from nvsf_torch.render.frame_graph import FrameGraphs, run_chunks
+from nvsf_torch.train.profiler import traced
 
 # rays compacted at once by the full-frame render (renderer.py:641)
 COMPACT_CHUNK = 8192
@@ -263,6 +264,7 @@ class Renderer:
         return {"depth": depth, "image": image, "weights_sum": weights_sum,
                 "weights": weights, "z_vals": z_vals}
 
+    @traced("render")
     def run(self, rays_o, rays_d, time, *, cal_lidar_color=False,
             perturb=False, generator=None,
             z_noise: Optional[torch.Tensor] = None,
@@ -329,6 +331,7 @@ class Renderer:
                            det=det, u=u, generator=generator)
         return torch.sort(torch.cat([z_vals, new_z], dim=-1), dim=-1).values
 
+    @traced("render")
     def run_occupancy(self, rays_o, rays_d, time, occ: OccupancyGrid,
                       occ_grid, *, num_steps_occ: int,
                       cal_lidar_color=False, perturb=False, generator=None,
@@ -373,6 +376,7 @@ class Renderer:
                                cal_lidar_color=cal_lidar_color,
                                bg_color=bg_color, valid=valid)
 
+    @traced("render")
     def run_joint(self, ro_l, rd_l, ro_c, rd_c, time, *, perturb=False,
                   generator=None, draws_l: Optional[dict] = None,
                   draws_c: Optional[dict] = None, bg_color=None,

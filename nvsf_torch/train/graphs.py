@@ -40,7 +40,9 @@ its stream's free blocks).
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import gc
 import time
 from typing import Callable, Dict, Iterable, Mapping, Optional
 
@@ -62,6 +64,24 @@ def _add(counts, delta) -> None:
             _add(counts.setdefault(k, {}), d)
         else:
             counts[k] = counts.get(k, 0) + d
+
+
+@contextlib.contextmanager
+def capture(graph: "torch.cuda.CUDAGraph", **kwargs):
+    """``torch.cuda.graph(graph, **kwargs)`` with Python's cyclic garbage
+    collector held off: a collection inside the capture may free an
+    unreachable object that owns CUDA memory (a dropped program's graph
+    and pool), and freeing it on the capturing thread invalidates the
+    capture. Torch no longer collects before a capture, so such objects
+    wait for the next collection outside one."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, **kwargs):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _named(tensors):
@@ -170,8 +190,8 @@ class Program:
         t0 = time.perf_counter()
         # thread_local: an NCCL watchdog thread's event queries do not
         # break the capture
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
+        with capture(graph, pool=self.pool, stream=self.stream,
+                     capture_error_mode="thread_local"):
             out = self.fn(**self.inputs)
             for o, x in zip(pytree.tree_leaves(self.outputs),
                             pytree.tree_leaves(out)):

@@ -125,12 +125,20 @@ class StepGraphs:
 
     def step(self, fi: int, patch: bool) -> Dict[str, torch.Tensor]:
         """One step of frame ``fi``: a replay once the mode is captured,
-        whose metrics the next replay overwrites."""
+        whose metrics the next replay overwrites. Each part of the host's
+        work is a span of the trainer's timers (``step.fill``,
+        ``step.hold_grads``, ``step.replay``, ``step.end_step``), so that
+        a device trace names the part the host was in."""
         tr = self.trainer
-        tr._fi.fill_(int(fi))
+        span = tr.timers.span
+        with span("step.fill"):
+            tr._fi.fill_(int(fi))
         prog = self.modes[bool(patch)]
         if not prog.warming:
-            self._hold_grads()
-        out = prog()
-        tr.end_step()
+            with span("step.hold_grads"):
+                self._hold_grads()
+        with span("step.replay"):
+            out = prog()
+        with span("step.end_step"):
+            tr.end_step()
         return out

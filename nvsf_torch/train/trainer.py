@@ -29,6 +29,14 @@ branches render in one ``Renderer.run_joint`` pass, as there:
 Every random draw of a step can be injected through ``draws`` (see
 ``loss_and_grads``), so tests can replay the JAX package's draws.
 
+The step's parts are spans (``train/profiler.py``): ``sample``,
+``render`` (``render/renderer.py``), the field's ``encode.*`` and ``mlp``,
+``loss``, ``backward`` and ``optim``, and the refresh is ``refresh``; the
+host's work around each step is timed by ``timers.span``
+(``step.dispatch``, ``epoch.sums``, ``refresh.dispatch``, ``ema``,
+``epoch.sync``; on the card ``step.dispatch`` holds ``step.fill``,
+``step.hold_grads``, ``step.replay`` and ``step.end_step``).
+
 With a ``mesh`` (``nvsf_torch.parallel.mesh``) the step is one global step
 split by rays across the mesh's ranks, as the JAX package's sharded step
 (``nvsf_tpu/train/trainer.py:395-430``): every rank draws the whole batch,
@@ -68,7 +76,7 @@ from nvsf_torch.render.renderer import Renderer
 from nvsf_torch.train import checkpoint as ckpt
 from nvsf_torch.train import losses as L
 from nvsf_torch.train.graphs import Program
-from nvsf_torch.train.profiler import PhaseTimers, device_trace
+from nvsf_torch.train.profiler import PhaseTimers, device_trace, span
 from nvsf_torch.train.refine import apply_refinement, refine_raydrop
 
 
@@ -467,62 +475,62 @@ class Trainer:
                              ("rgb_depth", "rgb_depth_loss"),
                              ("raydrop", "raydrop_loss"),
                              ("intensity", "intensity_loss"))}
-        t = _row(data["times"], fi)
         parts, em_inputs = {}, {}
-        total = torch.zeros((), device=dev)
 
-        if cfg.enable_lidar:
-            inds = sampler.sample_indices(
-                Hl, Wl, cfg.num_rays_lidar,
-                patch_size=patch_hw if patch else 1,
-                error_map=_row(self.error_map, fi) if use_em else None,
-                use_error_map=use_em, generator=gen,
-                draws=draws.get("lidar_rays"), device=dev)
-            ro, rd = raylib.get_lidar_rays(
-                _row(data["poses_lidar"], fi), inds, Hl, Wl,
-                scene.intrinsics_lidar, scene.intrinsics_hoz_lidar)
-            gt = _row(data["panos_flat"], fi)[inds]
-        if cfg.enable_rgb:
-            inds_c = sampler.sample_indices(
-                H, W, cfg.num_rays, patch_size=cfg.patch_size,
-                error_map=_row(self.error_map_rgb, fi) if use_em else None,
-                use_error_map=use_em, generator=gen,
-                draws=draws.get("rgb_rays"), device=dev)
-            ro_c, rd_c = raylib.get_camera_rays(_row(data["poses"], fi),
-                                                inds_c, H, W,
-                                                data["intrinsics"])
-            gt_rgb = _row(data["images_flat"], fi)[inds_c]
-            if cfg.color_space == "linear":
-                gt_rgb = torch.cat([srgb_to_linear(gt_rgb[..., :3]),
-                                    gt_rgb[..., 3:]], dim=-1)
-            bg = 1.0
-            if gt_rgb.shape[-1] == 4:
-                bg = draws.get("bg")
-                if bg is None:
-                    bg = torch.rand((cfg.num_rays, 3), generator=gen,
-                                    device=dev)
-                gt_rgb = gt_rgb[..., :3] * gt_rgb[..., 3:] \
-                    + bg * (1 - gt_rgb[..., 3:])
+        with span("sample", dev):
+            t = _row(data["times"], fi)
+            if cfg.enable_lidar:
+                inds = sampler.sample_indices(
+                    Hl, Wl, cfg.num_rays_lidar,
+                    patch_size=patch_hw if patch else 1,
+                    error_map=_row(self.error_map, fi) if use_em else None,
+                    use_error_map=use_em, generator=gen,
+                    draws=draws.get("lidar_rays"), device=dev)
+                ro, rd = raylib.get_lidar_rays(
+                    _row(data["poses_lidar"], fi), inds, Hl, Wl,
+                    scene.intrinsics_lidar, scene.intrinsics_hoz_lidar)
+                gt = _row(data["panos_flat"], fi)[inds]
+            if cfg.enable_rgb:
+                inds_c = sampler.sample_indices(
+                    H, W, cfg.num_rays, patch_size=cfg.patch_size,
+                    error_map=_row(self.error_map_rgb, fi) if use_em else None,
+                    use_error_map=use_em, generator=gen,
+                    draws=draws.get("rgb_rays"), device=dev)
+                ro_c, rd_c = raylib.get_camera_rays(_row(data["poses"], fi),
+                                                    inds_c, H, W,
+                                                    data["intrinsics"])
+                gt_rgb = _row(data["images_flat"], fi)[inds_c]
+                if cfg.color_space == "linear":
+                    gt_rgb = torch.cat([srgb_to_linear(gt_rgb[..., :3]),
+                                        gt_rgb[..., 3:]], dim=-1)
+                bg = 1.0
+                if gt_rgb.shape[-1] == 4:
+                    bg = draws.get("bg")
+                    if bg is None:
+                        bg = torch.rand((cfg.num_rays, 3), generator=gen,
+                                        device=dev)
+                    gt_rgb = gt_rgb[..., :3] * gt_rgb[..., 3:] \
+                        + bg * (1 - gt_rgb[..., 3:])
 
-        pc = None
-        if cfg.flow_loss and self.pc_data is not None:
-            gfi = torch.round(t * (cfg.num_frames - 1)).long()
-            pc = _row(self.pc_data["pc"], gfi)
-            pcm = _row(self.pc_data["pc_mask"], gfi)
+            pc = None
+            if cfg.flow_loss and self.pc_data is not None:
+                gfi = torch.round(t * (cfg.num_frames - 1)).long()
+                pc = _row(self.pc_data["pc"], gfi)
+                pcm = _row(self.pc_data["pc_mask"], gfi)
 
-        # each branch's rays and K, and its render draws at the batch's
-        # full shape (a rank of a mesh draws what a single process does)
-        n_rays, K = {}, {}
-        if cfg.enable_lidar:
-            n_rays["lidar"] = ro.shape[0]
-            K["lidar"] = cfg.num_steps_occ
-        if cfg.enable_rgb:
-            n_rays["rgb"] = ro_c.shape[0]
-            K["rgb"] = cfg.num_steps_occ if self.joint \
-                else cfg.num_steps_occ_rgb or cfg.num_steps_occ
-        rdraws = {b: rend.render_noise(
-            n, K[b] if self.occ is not None else None, gen, dev,
-            draws.get(f"{b}_render")) for b, n in n_rays.items()}
+            # each branch's rays and K, and its render draws at the batch's
+            # full shape (a rank of a mesh draws what a single process does)
+            n_rays, K = {}, {}
+            if cfg.enable_lidar:
+                n_rays["lidar"] = ro.shape[0]
+                K["lidar"] = cfg.num_steps_occ
+            if cfg.enable_rgb:
+                n_rays["rgb"] = ro_c.shape[0]
+                K["rgb"] = cfg.num_steps_occ if self.joint \
+                    else cfg.num_steps_occ_rgb or cfg.num_steps_occ
+            rdraws = {b: rend.render_noise(
+                n, K[b] if self.occ is not None else None, gen, dev,
+                draws.get(f"{b}_render")) for b, n in n_rays.items()}
 
         def render(branch, ro, rd, lidar, bg_color=None):
             ro, rd, dr, bg_color = self._local_rays(ro, rd, rdraws[branch],
@@ -563,75 +571,78 @@ class Trainer:
             if cfg.enable_rgb:
                 out_c = render("rgb", ro_c, rd_c, False, bg_color=bg)
 
-        if cfg.enable_lidar:
-            gt_raydrop = gt[:, 0]
-            gt_intensity = gt[:, 1] * gt_raydrop
-            gt_depth = gt[:, 2] * gt_raydrop
-            pred_raydrop = out["image_lidar"][:, 0]
-            pred_intensity = out["image_lidar"][:, 1] * gt_raydrop
-            pred_depth = out["depth_lidar"] * gt_raydrop
-            if cfg.raydrop_loss == "bce":
-                pred_raydrop = torch.sigmoid(pred_raydrop)
-            lidar_loss, lparts = L.lidar_losses(
-                pred_raydrop, pred_intensity, pred_depth, gt_raydrop,
-                gt_intensity, gt_depth, crit, cfg.alpha_d, cfg.alpha_i,
-                cfg.alpha_r, cfg.smooth_factor)
-            parts.update(lparts)
-            total = total + lidar_loss.sum()
-            cd = L.lidar_chamfer_loss(rd, pred_depth, gt_depth, cfg.scale)
-            parts["chamfer"] = cd
-            total = total + cd
-            if pc is not None:
-                if fl is None:
-                    fl = self.field.flow_at(pc, t)
-                pcd = self.pc_data
-                nxt = torch.clamp(gfi + 1, max=cfg.num_frames - 1)
-                prv = torch.clamp(gfi - 1, min=0)
-                has_next = (gfi < cfg.num_frames - 1) \
-                    & _row(pcd["pc_valid"], nxt)
-                has_prev = (gfi > 0) & _row(pcd["pc_valid"], prv)
-                fwd = L.flow_consistency_loss(pc, pcm, _row(pcd["pc"], nxt),
-                                              _row(pcd["pc_mask"], nxt),
-                                              fl["flow_forward"])
-                bwd = L.flow_consistency_loss(pc, pcm, _row(pcd["pc"], prv),
-                                              _row(pcd["pc_mask"], prv),
-                                              fl["flow_backward"])
-                fl_loss = torch.where(has_next, fwd, 0.0) \
-                    + torch.where(has_prev, bwd, 0.0)
-                parts["flow"] = fl_loss
-                total = total + fl_loss
-            if cfg.use_urf_loss:
-                urf = L.urf_line_of_sight_loss(out["weights"], out["z_vals"],
-                                               gt_depth, self._step_t,
-                                               cfg.iters)
-                parts["urf"] = urf
-                total = total + urf
-            if patch and self.sr_enabled():
-                sr = self._structural_loss(fi, inds, out["depth_lidar"], gt,
-                                           patch_hw)
-                parts["loss_sr"] = sr
-                total = total + sr
-            em_inputs["lidar"] = (inds, lidar_loss.detach())
+        with span("loss", dev, backward=True) as s:
+            total = torch.zeros((), device=dev)
+            if cfg.enable_lidar:
+                gt_raydrop = gt[:, 0]
+                gt_intensity = gt[:, 1] * gt_raydrop
+                gt_depth = gt[:, 2] * gt_raydrop
+                pred_raydrop = out["image_lidar"][:, 0]
+                pred_intensity = out["image_lidar"][:, 1] * gt_raydrop
+                pred_depth = out["depth_lidar"] * gt_raydrop
+                if cfg.raydrop_loss == "bce":
+                    pred_raydrop = torch.sigmoid(pred_raydrop)
+                lidar_loss, lparts = L.lidar_losses(
+                    pred_raydrop, pred_intensity, pred_depth, gt_raydrop,
+                    gt_intensity, gt_depth, crit, cfg.alpha_d, cfg.alpha_i,
+                    cfg.alpha_r, cfg.smooth_factor)
+                parts.update(lparts)
+                total = total + lidar_loss.sum()
+                cd = L.lidar_chamfer_loss(rd, pred_depth, gt_depth, cfg.scale)
+                parts["chamfer"] = cd
+                total = total + cd
+                if pc is not None:
+                    if fl is None:
+                        fl = self.field.flow_at(pc, t)
+                    pcd = self.pc_data
+                    nxt = torch.clamp(gfi + 1, max=cfg.num_frames - 1)
+                    prv = torch.clamp(gfi - 1, min=0)
+                    has_next = (gfi < cfg.num_frames - 1) \
+                        & _row(pcd["pc_valid"], nxt)
+                    has_prev = (gfi > 0) & _row(pcd["pc_valid"], prv)
+                    fwd = L.flow_consistency_loss(
+                        pc, pcm, _row(pcd["pc"], nxt),
+                        _row(pcd["pc_mask"], nxt), fl["flow_forward"])
+                    bwd = L.flow_consistency_loss(
+                        pc, pcm, _row(pcd["pc"], prv),
+                        _row(pcd["pc_mask"], prv), fl["flow_backward"])
+                    fl_loss = torch.where(has_next, fwd, 0.0) \
+                        + torch.where(has_prev, bwd, 0.0)
+                    parts["flow"] = fl_loss
+                    total = total + fl_loss
+                if cfg.use_urf_loss:
+                    urf = L.urf_line_of_sight_loss(
+                        out["weights"], out["z_vals"], gt_depth,
+                        self._step_t, cfg.iters)
+                    parts["urf"] = urf
+                    total = total + urf
+                if patch and self.sr_enabled():
+                    sr = self._structural_loss(fi, inds, out["depth_lidar"],
+                                               gt, patch_hw)
+                    parts["loss_sr"] = sr
+                    total = total + sr
+                em_inputs["lidar"] = (inds, lidar_loss.detach())
 
-        if cfg.enable_rgb:
-            rgb_l = cfg.alpha_rgb * crit["rgb"](out_c["image"],
-                                                gt_rgb[..., :3])
-            parts["rgb"] = rgb_l.sum()
-            total = total + rgb_l.sum()
-            if cfg.use_rgbd_loss and "image_depths_flat" in data:
-                gt_d = _row(data["image_depths_flat"], fi)[inds_c] \
-                    * cfg.scale
-                max_d = 80 * cfg.scale
-                gt_d = torch.clamp(gt_d, max=max_d)
-                pd_c = torch.clamp(out_c["depth"], max=max_d)
-                m = (gt_d > 0).to(torch.float32)
-                rd_l = cfg.alpha_rd * crit["rgb_depth"](pd_c * m, gt_d * m)
-                parts["rgb_d"] = rd_l.sum()
-                total = total + rd_l.sum()
-            em_inputs["rgb"] = (inds_c, rgb_l.sum(-1).detach())
+            if cfg.enable_rgb:
+                rgb_l = cfg.alpha_rgb * crit["rgb"](out_c["image"],
+                                                    gt_rgb[..., :3])
+                parts["rgb"] = rgb_l.sum()
+                total = total + rgb_l.sum()
+                if cfg.use_rgbd_loss and "image_depths_flat" in data:
+                    gt_d = _row(data["image_depths_flat"], fi)[inds_c] \
+                        * cfg.scale
+                    max_d = 80 * cfg.scale
+                    gt_d = torch.clamp(gt_d, max=max_d)
+                    pd_c = torch.clamp(out_c["depth"], max=max_d)
+                    m = (gt_d > 0).to(torch.float32)
+                    rd_l = cfg.alpha_rd * crit["rgb_depth"](pd_c * m, gt_d * m)
+                    parts["rgb_d"] = rd_l.sum()
+                    total = total + rd_l.sum()
+                em_inputs["rgb"] = (inds_c, rgb_l.sum(-1).detach())
 
-        loss = L.scrub_loss(total)
-        loss.backward()
+            loss = s.out(L.scrub_loss(total))
+        with span("backward", dev):
+            loss.backward()
         if self.mesh is not None:
             all_reduce_grads(self.mesh, self.field.parameters())
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
@@ -694,24 +705,28 @@ class Trainer:
         forward and backward, NaN gradients zeroed, Adam, the error-map
         rows of frame ``fi`` (the int64 device scalar). Under a mesh it
         also all-reduces the gradients and broadcasts rank 0's rows."""
-        self.optimizer.zero_grad(set_to_none=False)
+        with span("optim", self.device):
+            self.optimizer.zero_grad(set_to_none=False)
         loss, parts, em_inputs = self.loss_and_grads(fi, patch, draws)
-        zero_nan_grads(self.field.parameters())
-        self.optimizer.step()
-        with torch.no_grad():
-            scene = self.scene
-            for key, em, H, W in (("lidar", self.error_map, scene.H_lidar,
-                                   scene.W_lidar),
-                                  ("rgb", self.error_map_rgb, scene.H,
-                                   scene.W)):
-                if key not in em_inputs:
-                    continue
-                inds, err = em_inputs[key]
-                row = sampler.update_error_map(_row(em, fi), inds, err, H, W)
-                if self.mesh is not None:
-                    # duplicate cells of the batch take any of their writes
-                    replicate(self.mesh, [row], "error map")
-                em.index_copy_(0, fi.reshape(1), row[None])
+        with span("optim", self.device):
+            zero_nan_grads(self.field.parameters())
+            self.optimizer.step()
+            with torch.no_grad():
+                scene = self.scene
+                for key, em, H, W in (("lidar", self.error_map,
+                                       scene.H_lidar, scene.W_lidar),
+                                      ("rgb", self.error_map_rgb, scene.H,
+                                       scene.W)):
+                    if key not in em_inputs:
+                        continue
+                    inds, err = em_inputs[key]
+                    row = sampler.update_error_map(_row(em, fi), inds, err,
+                                                   H, W)
+                    if self.mesh is not None:
+                        # duplicate cells of the batch take any of their
+                        # writes
+                        replicate(self.mesh, [row], "error map")
+                    em.index_copy_(0, fi.reshape(1), row[None])
         return {"loss": loss, **parts}
 
     def end_step(self) -> None:
@@ -742,7 +757,7 @@ class Trainer:
                 and self.epoch >= min(self.cfg.epochs, 2)):
             self._profiled = True
             trace = self.cfg.profile_dir if self.is_main else None
-        with self.timers.phase("train epoch"), device_trace(trace):
+        with device_trace(trace), self.timers.phase("train epoch"):
             return self._train_one_epoch(order, use_scan)
 
     def dispatches(self, order: np.ndarray, use_scan: bool):
@@ -776,16 +791,21 @@ class Trainer:
         use_patch = (self.patch_enabled() and self.epoch > 0
                      and self.epoch % cfg.change_patch_size_epoch == 0)
         step = self.scan_step if use_scan else self.train_step
+        timers = self.timers
         sums = {}
         for chunk in self.dispatches(order, use_scan):
             for fi in chunk:
-                metrics = step(int(fi), use_patch)
-                for k, v in metrics.items():
-                    sums[k] = sums[k] + v if k in sums else v.clone()
+                with timers.span("step.dispatch"):
+                    metrics = step(int(fi), use_patch)
+                with timers.span("epoch.sums"):
+                    for k, v in metrics.items():
+                        sums[k] = sums[k] + v if k in sums else v.clone()
             self.maybe_update_occ()
-        self.update_ema()
+        with timers.span("ema"):
+            self.update_ema()
         self.maybe_update_occ()
-        parts = {k: float(v) / len(order) for k, v in sums.items()}
+        with timers.span("epoch.sync"):
+            parts = {k: float(v) / len(order) for k, v in sums.items()}
         return EpochStats(loss=parts["loss"], parts=parts)
 
     def train(self, max_epochs: Optional[int] = None,
@@ -819,9 +839,10 @@ class Trainer:
         decay = self.cfg.ema_decay
         named = list(self.field.named_parameters())
         ema = [self.ema[k] for k, _ in named]
-        torch._foreach_mul_(ema, decay)
-        torch._foreach_add_(ema, [p.detach() for _, p in named],
-                            alpha=1 - decay)
+        with span("optim", self.device):
+            torch._foreach_mul_(ema, decay)
+            torch._foreach_add_(ema, [p.detach() for _, p in named],
+                                alpha=1 - decay)
 
     def _occ_refresh_times(self, generator):
         """Stratified, jittered query times over the scene's time span."""
@@ -844,7 +865,8 @@ class Trainer:
             return
         self._last_occ_update = tick
         self.occ_refresh_count += 1
-        self.refresh_occupancy(0xACC + self.global_step)
+        with self.timers.span("refresh.dispatch"):
+            self.refresh_occupancy(0xACC + self.global_step)
 
     def refresh_occupancy(self, seed: int,
                           graphed: Optional[bool] = None) -> None:
@@ -875,15 +897,16 @@ class Trainer:
         order of draws; each grid is written in place, as a captured step
         and the frame graphs read it at its address."""
         gen = self.occ_generator
-        ts = self._occ_refresh_times(gen)
-        for branch, lidar in (("lidar", True), ("rgb", False)):
-            grid = getattr(self, f"occ_grid_{branch}")
-            if grid is None:
-                continue
-            grid.copy_(self.occ.update(
-                grid, lambda p, tt, lidar=lidar: self.field.density(
-                    p, tt, cal_lidar_color=lidar, skip_warp=True)["sigma"],
-                ts, generator=gen))
+        with span("refresh", self.device):
+            ts = self._occ_refresh_times(gen)
+            for branch, lidar in (("lidar", True), ("rgb", False)):
+                grid = getattr(self, f"occ_grid_{branch}")
+                if grid is None:
+                    continue
+                grid.copy_(self.occ.update(
+                    grid, lambda p, tt, lidar=lidar: self.field.density(
+                        p, tt, cal_lidar_color=lidar,
+                        skip_warp=True)["sigma"], ts, generator=gen))
 
     def _refresh_program(self) -> Program:
         key = ("refresh", dataclasses.astuple(self.occ),

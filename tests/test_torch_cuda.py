@@ -337,6 +337,68 @@ def test_replayed_steps_match_eager_steps_across_a_refresh(dev):
         counts
 
 
+def _device_markers(events):
+    return [n for n, _, _, on in sorted(events, key=lambda e: e[1])
+            if on and "nvsf_span_" in n]
+
+
+def test_replays_run_the_marker_sequence_of_their_capture(dev):
+    """The span markers (``train/profiler.py``, ``csrc/spans.cu``) on the
+    captured step: the last eager warm-up (the code the capture records)
+    and three replays, traced apart from the capture: each replay runs the
+    warm-up's marker kernels in its order, balanced and nested; there
+    every B1, B3 and B4 kernel runs inside an ``encode.*`` span; markers
+    add nothing to the launch counts. The host's parts of each replayed
+    step are its ranges ``nvsf/step.*``, one each a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvsf_torch.train import profiler as P
+    from nvsf_torch.train.step_graph import WARMUP_STEPS
+    g, _ = _graph_pair(interval=100)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for fi in range(WARMUP_STEPS - 1):
+        g.scan_step(fi, False)
+    with profile(activities=acts) as prof:
+        g.scan_step(0, False)
+        torch.cuda.synchronize()
+    eager = _device_markers(P.trace_events(prof))
+    g.scan_step(1, False)                 # the capture and first replay
+    with profile(activities=acts) as prof:
+        for fi in (2, 3, 0):
+            g.scan_step(fi, False)
+        torch.cuda.synchronize()
+    events = P.trace_events(prof)
+    assert g.step_graphs.replays[False] == 4
+    assert eager and _device_markers(events) == eager * 3
+    times = P.span_times(events)
+    for name in ("sample", "render", "encode.hash", "encode.planes",
+                 "encode.flow", "mlp", "loss", "backward", "optim"):
+        assert times[name]["opens"] == times[name]["closes"] > 0, name
+    stack, outside = [], []
+    for n, _, _, on in sorted(events, key=lambda e: e[1]):
+        if not on:
+            continue
+        if n.startswith("nvsf_span_open_"):
+            stack.append(n[len("nvsf_span_open_"):])
+        elif n.startswith("nvsf_span_close_"):
+            assert stack.pop() == n[len("nvsf_span_close_"):]
+        elif ("segment_add" in n or "multihot" in n) and not any(
+                s.startswith("encode_") for s in stack):
+            outside.append(n)
+    assert not stack and not outside, outside
+    host = [n for n, _, _, on in events
+            if not on and n.startswith("nvsf/step.")]
+    assert sorted(host) == sorted(
+        f"nvsf/step.{p}" for p in ("fill", "hold_grads", "replay",
+                                   "end_step") for _ in range(3)), host
+    kernels.reset_launch_counts()
+    for name in P.SPANS:
+        P.mark(name, True, dev)
+        P.mark(name, False, dev)
+    torch.cuda.synchronize()
+    assert not any(kernels.launch_counts().values())
+
+
 def test_load_checkpoint_drops_the_captured_steps(dev, tmp_path):
     """A load replaces the error maps, grids and Adam moments, so it drops
     the captured steps; the next scanned epoch captures anew and resumes

@@ -202,3 +202,30 @@ def test_graphed_entry_points_raise_on_the_cpu(program):
                                          (2, 2, 2), graphed=True)
         else:
             Program(lambda: None, "cpu")
+
+
+def test_capture_holds_off_garbage_collection(monkeypatch):
+    """Every capture (``graphs.capture``, which ``Program`` and the frame
+    graphs use) runs with Python's cyclic collector off, and turns it back
+    on after, also when the capture raises: a collection inside a capture
+    could free a dropped program's pool on the capturing thread."""
+    import contextlib
+    import gc
+
+    from nvsf_torch.train import graphs
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph, **kwargs):
+        seen.append((gc.isenabled(), kwargs))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    assert gc.isenabled()
+    with graphs.capture(object(), stream="s"):
+        assert not gc.isenabled()
+    with pytest.raises(RuntimeError):
+        with graphs.capture(object()):
+            raise RuntimeError("capture failed")
+    assert seen == [(False, {"stream": "s"}), (False, {})]
+    assert gc.isenabled()
