@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase render    # phase 13 alone (~3 min)
     python3 chip_smoke.py --phase programs  # phase 14 alone
+    python3 chip_smoke.py --phase hash      # phase 15 alone (~1 min)
 
 Phases, one line each:
   1. card     -- a CUDA device is present; prints nvidia-smi's name and
@@ -13,15 +14,19 @@ Phases, one line each:
                  shapes its path gives it (the training step's for B1-B4,
                  the eval frame's 67,980 x 67,980 points for B5), with its
                  time, the plain version's, one PyTorch library call's
-                 and the card's bound for the same work. Its "step" rows
-                 (run after phase 4, on its trainer) hold B1 and B4, and
-                 B3's forward, to the same checks and times on the inputs
-                 of one real training step, captured by wrapping the
-                 kernels' wrappers for that step; its "eval" rows (run
-                 after phase 5) hold B3 to them on the inputs of one
-                 render slab of phase 5's field; its "uniform" rows (after
-                 phase 8) hold B1, B3 and B4 to them on the inputs of one
-                 remat chunk of a dense step; its "programs" rows (in
+                 and the card's bound for the same work; then phase 15's
+                 rows of the hash-grid lookup. Its "step" rows (run after
+                 phase 4, on its trainer) hold the hash-grid lookup's
+                 forward and its gradient (B1's rows stage, fused), B4,
+                 and B3's forward, to the same checks and times on the
+                 inputs of one real training step, captured by wrapping
+                 the kernels' wrappers for that step (B1's cols/vals
+                 entry, which no step runs on the card, has phase 3's
+                 rows alone); its "eval" rows (run after phase 5) hold B3
+                 to them on the inputs of one render slab of phase 5's
+                 field; its "uniform" rows (after phase 8) hold the
+                 lookup, B3 and B4 to them on the inputs of one remat
+                 chunk of a dense step; its "programs" rows (in
                  phase 14) hold B3 to them on the inputs of one refresh
                  and of one density-query chunk. The inputs of these rows
                  come from eager steps (use_scan=False): a captured step's
@@ -162,6 +167,17 @@ Phases, one line each:
                  graphed in turns; captures and pools. Its path
                  ("programs") is one graphed refresh and one graphed query
                  of the mesh grid.
+ 15. hash     -- (in phase 3; alone: --phase hash) the hash-grid lookup
+                 (ops/hash_lookup.py: csrc/hash_encode.cu and its gradient
+                 in B1's rows stage) at the encoder shapes of the
+                 benchmark's two training cells, on ray-ordered points:
+                 forward and gradient against the plain composition (the
+                 chain the kernels replace), their device times, the
+                 bound (points read, features written, table sectors
+                 touched; the gradient's table written whole), launches a
+                 call; and the layouts: the forward reading the
+                 features-major table in place against the row-major copy
+                 and the copy's time, and the folds writing either layout.
 
 Each phase prints when it is done, with its share of the script's 600 s
 target (half the 1200 s allowed).
@@ -214,7 +230,8 @@ SUM_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
-TRAIN_KERNELS = ("segment_add", "multihot_fwd", "multihot_bwd")
+TRAIN_KERNELS = ("hash_encode_fwd", "hash_encode_bwd", "multihot_fwd",
+                 "multihot_bwd")
 
 # the script's own time target, half the 1200 s it is allowed
 TARGET_S = 600.0
@@ -344,11 +361,8 @@ def _segment_add_cases(gen, dev):
     step (N = 2048 x 96 samples), from the slice's own encoders:
       static hash   4 levels x 8 corners x N updates, F 8, T 4 x 2^19;
       flow hash     the same M, F 32 / 4 basis = 8, T 4 x 2^18;
-      dynamic hash  the t-query prefix of the fused three-query gather,
-                    3 planes x 4 levels x 4 corners x N updates, F 2,
-                    T 4 x (2^15 + 2^13 + 2^13); its values are the first
-                    third of a [2, 3M] gradient, read in place with row
-                    stride 3M, as the gather's backward passes them."""
+      dynamic hash  3 planes x 4 levels x 4 corners x N updates, F 2,
+                    T 4 x (2^15 + 2^13 + 2^13)."""
     from nvsf_torch.models.field import NVSFField
     from nvsf_torch.train.trainer import field_spec_from_config
     field = NVSFField(field_spec_from_config(joint_tuned_config(
@@ -368,11 +382,15 @@ def _segment_add_cases(gen, dev):
     cases.append(("flow hash", cols,
                   randn(flow.n_features_per_level // field.flow.num_basis,
                         cols.shape[0]), flow.n_cols))
+    from nvsf_torch.ops import hash_lookup as hl
     grids = field.hash_lidar.dynamic_grids
-    cols, _ = field.hash_lidar._dynamic_cols_weights(x)
-    M = cols.shape[0]
-    g = randn(grids[0].n_features_per_level // grids[0].num_basis, 3 * M)
-    cases.append(("dynamic hash n_grad prefix", cols, g[:, :M],
+    res = field.hash_lidar.static_grid.resolutions
+    cols = torch.cat([hl.level_cols_weights(x[:, list(pl.axes)], res,
+                                            1 << pl.log2_T)[0] + pl.slot0
+                      for pl in field.hash_lidar._planes()])
+    cases.append(("dynamic hash", cols,
+                  randn(grids[0].n_features_per_level // grids[0].num_basis,
+                        cols.shape[0]),
                   sum(gr.grid.n_cols for gr in grids)))
     return cases
 
@@ -663,6 +681,13 @@ KERNELS = [
      "nvsf_tpu/ops/multihot.py:47"),
     ("chamfer_min_dist", "nvsf_torch/csrc/chamfer.cu",
      "nvsf_tpu/ops/chamfer_pallas.py:32"),
+    # not a Pallas kernel: the hash-grid lookup's XLA ops (corners, hash,
+    # weights, gather, corner sum)
+    ("hash_encode_fwd", "nvsf_torch/csrc/hash_encode.cu",
+     "nvsf_tpu/models/hash_grid.py:142"),
+    # its gradient: B1's rows stage with the lookup's input stage
+    ("hash_encode_bwd", "nvsf_torch/csrc/segsum.cu",
+     "nvsf_tpu/ops/segsum.py:102"),
     # not a Pallas kernel: the condition of the marcher's lax.while_loop
     # (slab_cond), which the frame graphs' IF nodes decide on the device
     ("graph_if", "nvsf_torch/csrc/graph_cond.cu",
@@ -762,17 +787,21 @@ def _keep(t):
 
 
 def capture_step_inputs(tr, patch=False, distinct=False):
-    """The inputs of every B1 and B4 launch of one training step of ``tr``
-    (with ``distinct``, of the first launch of each shape only: a dense
-    step's remat chunks launch each kernel at the same shapes 16 times).
-    Both wrappers are looked up as module attributes at call time
-    (``segsum.segment_add_fm``, ``multihot._MultihotSample.backward``), so
-    wrapping the attributes for one step records each call's inputs
-    (copies, with their strides) and restoring them leaves the port as it
-    was."""
-    calls = {"segment_add": [], "multihot_bwd": []}
+    """The inputs of every hash-grid lookup kernel (forward and gradient)
+    and B4 launch of one training step of ``tr`` (with ``distinct``, of
+    the first launch of each shape only: a dense step's remat chunks
+    launch each kernel at the same shapes 16 times). The wrappers are
+    looked up as module attributes at call time
+    (``hash_lookup.lookup_fwd_cuda`` / ``lookup_bwd_cuda``,
+    ``multihot._MultihotSample.backward``), so wrapping the attributes for
+    one step records each call's inputs (copies, with their strides) and
+    restoring them leaves the port as it was."""
+    from nvsf_torch.ops import hash_lookup as hl
+    calls = {"hash_encode_fwd": [], "hash_encode_bwd": [],
+             "multihot_bwd": []}
     seen = set()
-    orig_sa, orig_mb = segsum.segment_add_cuda, mh.multihot_bwd_cuda
+    orig_lf, orig_lb = hl.lookup_fwd_cuda, hl.lookup_bwd_cuda
+    orig_mb = mh.multihot_bwd_cuda
 
     def new(key):
         if distinct and key in seen:
@@ -780,11 +809,26 @@ def capture_step_inputs(tr, patch=False, distinct=False):
         seen.add(key)
         return True
 
-    def sa(cols, vals, T, precision="bf16"):
-        if new(("sa", tuple(vals.shape), T, precision)):
-            calls["segment_add"].append((_keep(cols), _keep(vals), T,
-                                         precision))
-        return orig_sa(cols, vals, T, precision)
+    def keep_queries(queries):
+        return [q._replace(x=_keep(q.x)) for q in queries]
+
+    def lf(reads, queries, resolutions):
+        if new(("lf", tuple(tuple(r.shape) for r in reads),
+                tuple((tuple(q.x.shape), q.planes) for q in queries))):
+            calls["hash_encode_fwd"].append(
+                ([_keep(r) for r in reads], keep_queries(queries),
+                 tuple(resolutions)))
+        return orig_lf(reads, queries, resolutions)
+
+    def lb(queries, grads, resolutions, S, F, precision, features_major,
+           device):
+        if new(("lb", S, F, precision,
+                tuple((tuple(q.x.shape), q.planes) for q in queries))):
+            calls["hash_encode_bwd"].append(
+                (keep_queries(queries), [_keep(g) for g in grads],
+                 tuple(resolutions), S, F, precision, features_major))
+        return orig_lb(queries, grads, resolutions, S, F, precision,
+                       features_major, device)
 
     def mb(tables, cols, ws, g, W, need_dw):
         if new(("mb", tuple(cols.shape), W, need_dw)):
@@ -792,34 +836,38 @@ def capture_step_inputs(tr, patch=False, distinct=False):
                 (*(_keep(t) for t in (tables, cols, ws, g)), W, need_dw))
         return orig_mb(tables, cols, ws, g, W, need_dw)
 
-    segsum.segment_add_cuda, mh.multihot_bwd_cuda = sa, mb
+    hl.lookup_fwd_cuda, hl.lookup_bwd_cuda, mh.multihot_bwd_cuda = \
+        lf, lb, mb
     try:
         tr.train_step(0, patch)
         torch.cuda.synchronize()
     finally:
-        segsum.segment_add_cuda, mh.multihot_bwd_cuda = orig_sa, orig_mb
+        hl.lookup_fwd_cuda, hl.lookup_bwd_cuda, mh.multihot_bwd_cuda = \
+            orig_lf, orig_lb, orig_mb
     return calls
 
 
 def phase_step_kernels(tr, label="step", distinct=False):
-    """Phase 3's "step" rows: B1 and B4 (and B3's forward on B4's inputs,
-    for comparison) on the inputs of one LiDAR + camera step of phase 4's
-    trainer, ray-ordered samples and all, each against its plain version
-    and timed beside its bound and library call; its "uniform" rows
-    (``distinct``) on the first launch of each shape of one dense step of
-    phase 8's trainer: one remat chunk's."""
+    """Phase 3's "step" rows: the hash-grid lookup's forward and gradient
+    and B4 (and B3's forward on B4's inputs, for comparison) on the
+    inputs of one LiDAR + camera step of phase 4's trainer, ray-ordered
+    samples and all, each against its plain version and timed beside its
+    bound; its "uniform" rows (``distinct``) on the first launch of each
+    shape of one dense step of phase 8's trainer: one remat chunk's."""
     calls = capture_step_inputs(tr, distinct=distinct)
-    field = tr.field
-    n_dyn = sum(g.grid.n_cols for g in field.hash_lidar.dynamic_grids)
-    n_static = field.hash_lidar.static_grid.n_cols
-    names = {n_static: "static hash", field.flow.enc.n_cols: "flow hash",
-             n_dyn: "dynamic hash n_grad prefix",
-             2 * n_static: "static hash, both branches",
-             2 * n_dyn: "dynamic hash n_grad prefix, both branches"}
-    rows = {"segment_add": [], "multihot_fwd": [], "multihot_bwd": []}
-    for i, (cols, vals, T, prec) in enumerate(calls["segment_add"]):
-        rows["segment_add"].append(segment_add_row(
-            f"{label} #{i} {names.get(T, 'table')}", cols, vals, T, prec))
+    rows = {"hash_encode_fwd": [], "hash_encode_bwd": [],
+            "multihot_fwd": [], "multihot_bwd": []}
+    for i, (reads, queries, res) in enumerate(calls["hash_encode_fwd"]):
+        rows["hash_encode_fwd"].append(hash_fwd_row(
+            f"{label} #{i} {_lookup_desc(queries, res, reads[0].shape)}",
+            reads, queries, res))
+        torch.cuda.empty_cache()
+    for i, (queries, grads, res, S, F, prec, fm) in enumerate(
+            calls["hash_encode_bwd"]):
+        rows["hash_encode_bwd"].append(hash_bwd_row(
+            f"{label} #{i} {_lookup_desc(queries, res, (S, F))} {prec}",
+            queries, grads, res, S, F, prec, fm))
+        torch.cuda.empty_cache()
     for i, (tables, cols, ws, g, W, need_dw) in enumerate(
             calls["multihot_bwd"]):
         Q, S, C, Np = cols.shape
@@ -1862,8 +1910,8 @@ def phase_cli(smi):
     assert faces > 0, "the mesh has no faces"
     traces = [p for p in trace.rglob("*") if p.is_file()]
     assert traces, "no device trace written"
-    missing = [k for k in ("segment_add", "multihot_fwd", "multihot_bwd",
-                           "chamfer_min_dist") if launches[k] == 0]
+    missing = [k for k in TRAIN_KERNELS + ("chamfer_min_dist",)
+               if launches[k] == 0]
     assert not missing, f"kernels not launched by the CLI: {missing}"
     log("cli", f"epochs {epochs}; refine losses {refine}; refined eval "
                f"(combined) point {matrix['point']}, depth "
@@ -1900,8 +1948,8 @@ def uniform_config(spec, **over):
 def check_remat(tr, fi=3):
     """One random step's loss and gradients with the density query in 8
     remat chunks and in one, from the same state and draws (the trainer's
-    generator reseeded), in f32 (the step's table gradients then run B2).
-    Equal within 1e-5 of each gradient's largest magnitude (the same
+    generator reseeded), in f32 (the lookups' table gradients then sum
+    unrounded, B2's semantics). Equal within 1e-5 of each gradient's largest magnitude (the same
     per-point functions; gradients summed over chunks in another order,
     by atomics). Returns the loss, the worst gradient and its error, and
     the peak memory of each (GiB)."""
@@ -2092,12 +2140,11 @@ def phase_uniform(smi, trained, stream):
     log("uniform", f"launches of the full-width path: steps {step_launches}"
                    f", dense eval {eval_launches}; the f32 remat check "
                    f"{f32_launches} {took()}")
-    missing = [k for k in ("segment_add", "multihot_fwd", "multihot_bwd",
-                           "chamfer_min_dist") if launches[k] == 0]
+    missing = [k for k in TRAIN_KERNELS + ("chamfer_min_dist",)
+               if launches[k] == 0]
     assert not missing, f"kernels not launched by the uniform path: " \
                         f"{missing}"
-    assert launches["segment_add_f32"] == 0, launches
-    assert f32_launches["segment_add_f32"] > 0, f32_launches
+    assert f32_launches["hash_encode_bwd"] > 0, f32_launches
     losses = phase_learning("uniform", tag="uniform")
     return {"uniform": launches, "uniform-f32": f32_launches}, tr, losses
 
@@ -2366,8 +2413,8 @@ def phase_kitti(smi):
     key = scores["combined"]
     bad = [k for k, v in key.items() if not np.isfinite(v)]
     assert not bad, f"non-finite {bad} in the val eval: {scores}"
-    missing = [k for k in ("segment_add", "multihot_fwd", "multihot_bwd",
-                           "chamfer_min_dist") if launches[k] == 0]
+    missing = [k for k in TRAIN_KERNELS + ("chamfer_min_dist",)
+               if launches[k] == 0]
     assert not missing, f"kernels not launched by the KITTI path: {missing}"
     log("kitti", f"CLI run {t_run:.1f} s ({tr.global_step} steps, then "
                  f"the eval of the 4 val frames at 66x1030 and 94x352); "
@@ -2406,7 +2453,7 @@ def joint_vs_separate(tr, fi=3, f32=False, seed=0):
     """One step's loss and gradients through the fused path and through
     the separate one, from the same state and draws (the sampler's
     generator reseeded, the render draws given, both from ``seed``); with
-    ``f32`` in f32 (the table gradients then run B2). Returns the two
+    ``f32`` in f32 (the table gradients then sum unrounded). Returns the two
     losses, the worst gradient and its error over the gradient's largest
     magnitude."""
     rend, field = tr.renderer, tr.field
@@ -3428,6 +3475,238 @@ def phase_programs(tr, smi):
     return launches, rows
 
 
+# ----------------------------------------------------------------------
+# phase 15: the hash-grid lookup at the cells' encoder shapes
+# ----------------------------------------------------------------------
+
+# (cell, family, D, F, levels, base and max resolution, log2 T of each
+# plane, points, queries, gradient): the occupancy cell's camera branch
+# (2048 x 128 samples) and the dense cell's remat chunk (4096 x 768 / 8);
+# the dynamic and flow tables folded over 4 bases
+HASH_SHAPES = [
+    ("occ", "static", 3, 8, 4, 512, 32768, (19,), 262_144, 1, True),
+    ("occ", "dynamic t", 2, 2, 4, 512, 32768, (15, 13, 13), 262_144, 1,
+     True),
+    ("occ", "dynamic warps", 2, 2, 4, 512, 32768, (15, 13, 13), 262_144, 2,
+     False),
+    ("occ", "flow", 3, 8, 4, 32, 8192, (18,), 262_144, 1, True),
+    ("dense", "static", 3, 4, 8, 512, 32768, (19,), 196_608, 1, True),
+    ("dense", "dynamic t", 2, 1, 8, 512, 32768, (15, 13, 13), 196_608, 1,
+     True),
+    ("dense", "dynamic warps", 2, 1, 8, 512, 32768, (15, 13, 13), 196_608,
+     2, False),
+    ("dense", "flow", 3, 2, 16, 32, 8192, (18,), 196_608, 1, True),
+]
+
+
+def _hash_points(gen, n, dev, steps=96):
+    """n points in [0, 1]^3, ``steps`` consecutive samples along each of
+    n / steps random rays (a step's ray order)."""
+    rays = -(-n // steps)
+    o = torch.rand((rays, 1, 3), generator=gen, device=dev) * 0.4 + 0.3
+    d = nnf.normalize(torch.randn((rays, 1, 3), generator=gen, device=dev),
+                      dim=-1)
+    z = torch.linspace(0, 0.5, steps, device=dev)[None, :, None]
+    return (o + d * z).reshape(-1, 3)[:n].clamp(0, 1).contiguous()
+
+
+def _sector_bytes(cols, F):
+    """Bytes of the distinct 32-byte sectors of a row-major [*, F] f32
+    table that the slots ``cols`` touch."""
+    if 4 * F >= 32:
+        return int(torch.unique(cols).numel()) * 4 * F
+    return int(torch.unique(cols.long() * (4 * F) // 32).numel()) * 32
+
+
+def _lookup_desc(queries, res, shape):
+    pl = queries[0].planes
+    return (f"D={len(pl[0].axes)} F={shape[1]} L={len(res)} S={shape[0]} "
+            f"P={len(pl)} N={queries[0].x.shape[0]} x {len(queries)}")
+
+
+def _plane_cols_weights(q, pl, res):
+    """The plain composition's (cols, wc) of one plane of a query."""
+    from nvsf_torch.ops import hash_lookup as hl
+    c, wc = hl.level_cols_weights(q.x[:, list(pl.axes)], res,
+                                  1 << pl.log2_T)
+    return c + pl.slot0, wc
+
+
+def _lookup_work(queries, res, F):
+    """(bytes of the points' columns read once, of the features written
+    once, flops) of the lookups."""
+    L = len(res)
+    x_bytes = out_bytes = ops = 0
+    for q in queries:
+        N, P = q.x.shape[0], len(q.planes)
+        D = len(q.planes[0].axes)
+        x_bytes += 4 * N * len({a for pl in q.planes for a in pl.axes})
+        out_bytes += 4 * N * P * L * F
+        ops += 2 * (1 << D) * F * N * P * L
+    return x_bytes, out_bytes, ops
+
+
+def hash_fwd_row(variant, reads, queries, res):
+    """The lookup's forward kernel on one call's inputs (each table a
+    row-major [S, F] tensor) against the plain composition; its time, the
+    plain chain's on features-major tables (the port's path before the
+    kernel) and the bound: the points read, the features written, the
+    table sectors the corners touch."""
+    from nvsf_torch.ops import hash_lookup as hl
+    F, S = reads[0].shape[1], reads[0].shape[0]
+    fm_reads = [r.t().contiguous().t() for r in reads]
+    ref = hl.lookup_plain(fm_reads, queries, res)
+    mags = hl.lookup_plain([r.abs() for r in fm_reads], queries, res)
+    n0 = kernels.launch_counts()["hash_encode_fwd"]
+    got = hl.lookup_fwd_cuda(reads, queries, res)
+    n_fwd = kernels.launch_counts()["hash_encode_fwd"] - n0
+    err, tol, ok = 0.0, 0.0, True
+    for a, b, m in zip(got, ref, mags):
+        e, t, o = compare("hash fwd", a, b, m)
+        err, tol, ok = max(err, e), max(tol, t), ok and o
+    cols = torch.cat([_plane_cols_weights(q, pl, res)[0] + q.table * S
+                      for q in queries for pl in q.planes])
+    x_bytes, out_bytes, ops = _lookup_work(queries, res, F)
+    b_ms, b_by = bound(x_bytes + out_bytes + _sector_bytes(cols, F), ops)
+    return dict(
+        variant=variant, max_abs_err=err, tol=tol, ok=ok,
+        ms=device_ms(lambda: hl.lookup_fwd_cuda(reads, queries, res)),
+        # the plain chains queue ~150 kernels a call: two calls fit in the
+        # launch queue behind device_ms's spin, ten do not
+        plain_ms=device_ms(lambda: hl.lookup_plain(fm_reads, queries, res),
+                           reps=2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, launches=n_fwd)
+
+
+def hash_bwd_row(variant, queries, grads, res, S, F, precision, fm):
+    """The lookup's gradient kernel (B1's rows stage, fused) on one
+    table's inputs against the plain version (every corner's update
+    w * g, then ``segment_add_plain``), within SUM_RTOL of the sum of the
+    updates' magnitudes; its time, the plain chain's backward (the port's
+    path before the kernel: the composition's autograd, B1's cols/vals
+    entry) and the bound: the points and the gradients read, the table
+    written."""
+    from nvsf_torch.ops import hash_lookup as hl
+    dev = grads[0].device
+    L = len(res)
+    # the queries of one table: table 0 of the plain version's one
+    queries = [q._replace(table=0) for q in queries]
+    grads = [g.float() for g in grads]
+    cols, vals = [], []
+    for q, g in zip(queries, grads):
+        for p, pl in enumerate(q.planes):
+            c, wc = _plane_cols_weights(q, pl, res)
+            gp = g[:, p * L * F:(p + 1) * L * F].reshape(-1, L, F)
+            cols.append(c)
+            vals.append((gp.permute(2, 1, 0)[:, :, None, :] * wc[None])
+                        .reshape(F, -1))
+    cols, vals = torch.cat(cols), torch.cat(vals, 1)
+    ref = segsum.segment_add_plain(cols, vals, S, precision)
+    mags = segsum.segment_add_plain(cols, vals.abs(), S, "f32")
+    del cols, vals
+    n0 = kernels.launch_counts()["hash_encode_bwd"]
+    got = hl.lookup_bwd_cuda(queries, grads, res, S, F, precision, fm, dev)
+    n_bwd = kernels.launch_counts()["hash_encode_bwd"] - n0
+    err, tol, ok = compare("hash bwd", got.t(), ref, mags)
+    del ref, mags
+    tp = torch.zeros((F, S), device=dev, requires_grad=True)
+
+    def plain_total():
+        o = hl.lookup_plain([tp.t()], queries, res, precision)
+        return torch.autograd.grad(o, tp, grads)
+
+    plain_bwd = device_ms(plain_total, reps=2) - device_ms(
+        lambda: hl.lookup_plain([tp.t()], queries, res, precision), reps=2)
+    x_bytes, g_bytes, ops = _lookup_work(queries, res, F)
+    b_ms, b_by = bound(x_bytes + g_bytes + 4 * F * S, ops)
+    return dict(
+        variant=variant, max_abs_err=err, tol=tol, ok=ok,
+        ms=device_ms(lambda: hl.lookup_bwd_cuda(queries, grads, res, S, F,
+                                                precision, fm, dev)),
+        plain_ms=plain_bwd, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        launches=n_bwd)
+
+
+def hash_row(gen, dev, cell, family, D, F, L, base, top, log2s, N, Q, grad):
+    """The rows of one of HASH_SHAPES, on ray-ordered points: the forward
+    (with the features-major read and the layouts' costs: the copy of a
+    parameter, or either fold) and, with ``grad``, the bf16 gradient."""
+    from nvsf_torch.models.hash_grid import (lagrange_basis,
+                                             lagrange_fold_table,
+                                             level_resolutions)
+    from nvsf_torch.ops import hash_lookup as hl
+    res = level_resolutions(base, top, L)
+    planes, slot0 = [], 0
+    for i, lg in enumerate(log2s):
+        planes.append(hl.Plane(((0, 1), (0, 2), (1, 2))[i] if D == 2
+                               else (0, 1, 2), slot0, lg))
+        slot0 += L << lg
+    S = slot0
+    table = torch.rand((F, S), generator=gen, device=dev) * 2 - 1
+    xs = [torch.cat([_hash_points(gen, N, dev), torch.full(
+        (N, 1), 0.3, device=dev)], -1) for _ in range(Q)]
+    queries = [hl.Query(x[:, :3], 0, tuple(planes)) for x in xs]
+    rows = table.t().contiguous()
+    folded = family != "static"
+    row = hash_fwd_row(f"{cell} {family} "
+                       f"{_lookup_desc(queries, res, rows.shape)}",
+                       [rows], queries, res)
+    row["fm_read_ms"] = device_ms(lambda: hl.lookup_fwd_cuda(
+        [table.t()], queries, res))
+    if folded:   # the fold, forward and backward, into either layout
+        big = torch.rand((4 * F, S), generator=gen, device=dev,
+                         requires_grad=True)
+        t = torch.tensor(0.3, device=dev)
+
+        def fold_grad(fold, gf):
+            return lambda: torch.autograd.grad(fold(), big, gf)
+
+        def fold_tensordot():   # the contraction, then the copy
+            return torch.tensordot(lagrange_basis(t, 4), big.reshape(
+                4, F, S), dims=1).t().contiguous()
+
+        g_rows = torch.randn((S, F), generator=gen, device=dev)
+        for key, fold in (("fold_rows_ms", lambda: lagrange_fold_table(
+                big, t, 4)), ("fold_tensordot_ms", fold_tensordot)):
+            row[key] = device_ms(fold_grad(fold, g_rows), reps=4)
+    else:
+        row["copy_ms"] = device_ms(lambda: table.t().contiguous())
+    rows_out = {"hash_encode_fwd": [row]}
+    if grad:
+        g = [torch.randn((N, len(planes) * L * F), generator=gen,
+                         device=dev) for _ in queries]
+        rows_out["hash_encode_bwd"] = [hash_bwd_row(
+            row["variant"] + " bf16", queries, g, res, S, F, "bf16",
+            not folded)]
+    return rows_out
+
+
+def phase_hash():
+    """Phase 15: the hash-grid lookup's kernels at each cell's shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {"hash_encode_fwd": [], "hash_encode_bwd": []}
+    for shape in HASH_SHAPES:
+        log("hash", f"{shape[0]} {shape[1]}")
+        for name, rs in hash_row(gen, dev, *shape).items():
+            rows[name] += rs
+            torch.cuda.empty_cache()
+    report_kernels(rows, "hash")
+    for r in rows["hash_encode_fwd"]:
+        extra = {k: r[k] for k in ("fm_read_ms", "copy_ms", "fold_rows_ms",
+                                   "fold_tensordot_ms") if k in r}
+        log("hash", f"layout [{r['variant']}]: row-major read "
+                    f"{r['ms']:.4f} ms, "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in extra.items()))
+    print(json.dumps({"hash": rows}))
+    return rows
+
+
+def hash_alone(smi):
+    """``--phase hash``: phase 15 alone."""
+    phase_hash()
+
+
 def programs_alone(smi):
     """``--phase programs``: phase 14 alone, on phase 4's trainer after
     its two epochs and phase 5's settling (no checks of those phases)."""
@@ -3468,7 +3747,8 @@ def main(argv=None):
     smi = phase_card()
     phase_build()
     done("build")
-    alone = {"render": render_alone, "programs": programs_alone}
+    alone = {"render": render_alone, "programs": programs_alone,
+             "hash": hash_alone}
     if len(argv) == 2 and argv[0] == "--phase" and argv[1] in alone:
         alone[argv[1]](smi)
         done(f"{argv[1]} (alone)")
@@ -3478,9 +3758,11 @@ def main(argv=None):
             "count": torch.cuda.device_count()}}))
         return 0
     if argv:
-        raise SystemExit(f"usage: chip_smoke.py [--phase render|programs], "
+        raise SystemExit(f"usage: chip_smoke.py [--phase render|programs|"
+                         f"hash], "
                          f"got {argv}")
     rows = phase_kernels()
+    rows.update(phase_hash())
     done("kernels")
     tr, train_launches, slice_step_ms = phase_slice(smi)
     for name, rs in phase_step_kernels(tr).items():
@@ -3532,8 +3814,11 @@ def main(argv=None):
              "joint": joint_launches, "parallel": parallel_launches,
              "graph": graph_launches, "render": render_launches,
              "programs": programs_launches}
-    for counts in paths.values():
-        counts["segment_add"] -= counts["segment_add_f32"]
+    # every lookup on the card runs the hash kernels: no path's table
+    # gradient ran B1's cols/vals entry (the plain composition's)
+    plain = {path: counts["segment_add"] for path, counts in paths.items()
+             if counts["segment_add"]}
+    assert not plain, f"paths that ran B1's cols/vals entry: {plain}"
     record = []
     for name, source, replaces in KERNELS:
         rs = rows[name]

@@ -230,11 +230,11 @@ class NVSFField(nn.Module):
         """``density`` of the LiDAR points ``x_l`` and the camera points
         ``x_c`` at one scalar t, with each encoder family run once for
         both branches (``nvsf_tpu/models/field.py:270-378``): one static
-        hash gather, one dynamic hash gather over both branches' three
-        temporal queries, one K-planes sampler call for the static planes
-        and one for all six dynamic queries, one flow batch (both
-        branches and the optional ``x_flow_extra`` [E, 3] points of the
-        flow loss) and one sigma-net batch.
+        hash lookup, one dynamic hash lookup of both branches' t-queries
+        and one of their warp queries, one K-planes sampler call for the
+        static planes and one for all six dynamic queries, one flow batch
+        (both branches and the optional ``x_flow_extra`` [E, 3] points of
+        the flow loss) and one sigma-net batch.
 
         Returns {"sigma_l", "geo_feat_l", "sigma_c", "geo_feat_c"[,
         "flow_extra"]}."""

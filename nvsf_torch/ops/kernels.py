@@ -12,7 +12,11 @@ without ``nvcc``.
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
 where it launches its kernel, and nowhere else. ``segment_add`` counts
 every launch of the segment-add kernel, ``segment_add_f32`` those of its
-f32 variant (B2) again; ``graph_if`` the conditional IF nodes that the
+f32 variant (B2) again, both through its cols/vals entry
+(``nvsf_segment_add``); ``hash_encode_fwd`` the hash-grid lookup's
+forward (``csrc/hash_encode.cu``), ``hash_encode_bwd`` its gradient (the
+segment-add kernel's rows stage through the lookup's entry,
+``nvsf_hash_encode_bwd``, in either precision); ``graph_if`` the conditional IF nodes that the
 frame graphs capture (``csrc/graph_cond.cu``, each with a one-thread
 kernel that sets the node's condition). The span markers
 (``csrc/spans.cu``, launched by ``train/profiler.py``) are not counted.
@@ -41,13 +45,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"segment_add": 0, "segment_add_f32": 0, "multihot_fwd": 0,
-            "multihot_bwd": 0, "chamfer_min_dist": 0, "graph_if": 0}
+            "multihot_bwd": 0, "chamfer_min_dist": 0, "graph_if": 0,
+            "hash_encode_fwd": 0, "hash_encode_bwd": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _SIGNATURES = {
     "nvsf_segment_add": (_P, _P, _I64, _P, _P, _I64, _I64, _I, _I, _P),
+    "nvsf_hash_encode_fwd": (_P, _I, _P, _I, _I, _I, _P),
+    "nvsf_hash_encode_bwd": (_P, _I, _P, _I, _I, _I, _P, _P, _I64, _I, _P),
     "nvsf_multihot_fwd": (_P, _I64, _P, _P, _P, _I64, _I, _I, _I, _I64, _P),
     "nvsf_multihot_bwd": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _I64, _P),

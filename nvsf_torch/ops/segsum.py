@@ -6,6 +6,10 @@ On a CUDA tensor it launches the hand-written kernels of
 atomics into a row-major [T, F] scratch, then a transpose to [F, T]; at
 F = 1 straight into the table); on a CPU tensor it runs the plain PyTorch
 version below. Counterpart of ``nvsf_tpu/ops/segsum.py::segment_add_fm``.
+The hash-grid lookups' gradients on the card run the same kernels through
+another entry, whose input stage recomputes each update from the points
+instead of reading cols and vals (``ops/hash_lookup.py``); this one is
+their gradient on the CPU, through ``table_gather``.
 
 precision: ``"bf16"`` rounds every update to bf16 before the f32 sum, as the
 TPU kernel's packed payload does; ``"f32"`` sums the values as given.

@@ -7,6 +7,11 @@ card run them without the JAX test setup:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
+The hash-grid lookup (``csrc/hash_encode.cu`` and its gradient in B1's
+rows stage) is held to its plain composition at each cell's encoder shapes
+and at two other feature counts on ray-ordered points, and replayed in a
+CUDA graph.
+
 The scatter kernels (B1, B4) are also held to their plain versions on the
 key patterns their warp aggregation and vector atomics are built for:
 runs of one column, a single column, dropped columns, ragged sizes. The
@@ -25,6 +30,7 @@ import pytest
 import torch
 
 from nvsf_torch.ops import chamfer
+from nvsf_torch.ops import hash_lookup as hl
 from nvsf_torch.ops import kernels
 from nvsf_torch.ops import multihot as mh
 from nvsf_torch.ops import segsum
@@ -207,10 +213,179 @@ def test_chamfer_kernel(dev, masked):
         assert bool(((got - ref).abs() <= tol).all())
 
 
+# ----------------------------------------------------------------------
+# the hash-grid lookup (ops/hash_lookup.py)
+# ----------------------------------------------------------------------
+
+# (D, F, levels, base and max resolution, log2 T of each plane): the
+# encoders of the benchmark's occupancy cell (hash 4 x 8, flow 4 x 32 over
+# 4 bases) and dense cell (hash 8 x 4, flow 16 x 8); the dynamic tables
+# folded over 4 bases; and two feature counts that no cell has, which run
+# the kernels' runtime-F instantiations
+HASH_CASES = {
+    "runtime F 3D": (3, 3, 8, 16, 4096, (17,)),
+    "runtime F 2D": (2, 16, 4, 16, 2048, (12, 11, 11)),
+    "occ static": (3, 8, 4, 512, 32768, (19,)),
+    "occ dynamic": (2, 2, 4, 512, 32768, (15, 13, 13)),
+    "occ flow": (3, 8, 4, 32, 8192, (18,)),
+    "dense static": (3, 4, 8, 512, 32768, (19,)),
+    "dense dynamic": (2, 1, 8, 512, 32768, (15, 13, 13)),
+    "dense flow": (3, 2, 16, 32, 8192, (18,)),
+}
+PLANE_AXES = ((0, 1), (0, 2), (1, 2))
+
+
+def _ray_points(gen, n, dev, steps=96):
+    """n points in [0, 1]^3 along rays of ``steps`` samples each (the
+    step's ray order), with points on the faces 0 and 1."""
+    rays = -(-n // steps)
+    o = torch.rand((rays, 1, 3), generator=gen, device=dev) * 0.4 + 0.3
+    d = torch.nn.functional.normalize(
+        torch.randn((rays, 1, 3), generator=gen, device=dev), dim=-1)
+    z = torch.linspace(0, 0.5, steps, device=dev)[None, :, None]
+    x = (o + d * z).reshape(-1, 3)[:n].clamp(0, 1).contiguous()
+    x[:7] = 1.0
+    x[7:11] = 0.0
+    return x
+
+
+def _hash_case(name, gen, dev, n=196_608):
+    """(tables, queries, resolutions) of one case: one table and one
+    query, its points a column slice of [n, 4] (the flow's xyz + t)."""
+    from nvsf_torch.models.hash_grid import level_resolutions
+    D, F, L, base, top, log2s = HASH_CASES[name]
+    res = level_resolutions(base, top, L)
+    planes, slot0 = [], 0
+    for i, lg in enumerate(log2s):
+        planes.append(hl.Plane(PLANE_AXES[i] if D == 2 else (0, 1, 2),
+                               slot0, lg))
+        slot0 += L << lg
+    table = torch.rand((F, slot0), generator=gen, device=dev) * 2 - 1
+    xt = torch.cat([_ray_points(gen, n, dev), torch.full((n, 1), 0.3,
+                                                         device=dev)], -1)
+    return table, [hl.Query(xt[:, :3], 0, tuple(planes))], res
+
+
+def _plain_table_grad(table, queries, gs, res, precision):
+    """The table gradient in plain PyTorch, and the same sum of the
+    updates' magnitudes (the tolerance's scale)."""
+    cols, vals = [], []
+    for q, g in zip(queries, gs):
+        for p, pl in enumerate(q.planes):
+            c, wc = hl.level_cols_weights(q.x[:, list(pl.axes)], res,
+                                          1 << pl.log2_T)
+            L, C, N = wc.shape
+            F = table.shape[0]
+            gp = g[:, p * L * F:(p + 1) * L * F].reshape(N, L, F)
+            cols.append(c + pl.slot0)
+            vals.append((gp.permute(2, 1, 0)[:, :, None, :] * wc[None])
+                        .reshape(F, -1))
+    cols, vals = torch.cat(cols), torch.cat(vals, 1)
+    S = table.shape[1]
+    return (segsum.segment_add_plain(cols, vals, S, precision),
+            segsum.segment_add_plain(cols, vals.abs(), S, "f32"))
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+@pytest.mark.parametrize("case", list(HASH_CASES))
+def test_hash_lookup_kernels(dev, case, precision):
+    """The lookup's forward and table gradient against the plain
+    composition at each cell's encoder shape: the forward within 1e-5 of
+    the sum of |w v| (the same lookup of |table|), the gradient within
+    1e-5 of the sum of its updates' magnitudes; the features-major table
+    (a parameter, read as ``param.t()``) and the row-major one (a fold's
+    output) alike, each taking its gradient in its own layout; every
+    launch a kernel's."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    table, queries, res = _hash_case(case, gen, dev)
+    ref = hl.lookup_plain([table.t()], queries, res)[0]
+    bound = hl.lookup_plain([table.abs().t()], queries, res)[0]
+    g = torch.randn(ref.shape, generator=gen, device=dev)
+    ref_grad, grad_bound = _plain_table_grad(table, queries, [g], res,
+                                             precision)
+    for rows in (False, True):
+        t = (table.t().contiguous() if rows else table.clone()) \
+            .requires_grad_(True)
+        kernels.reset_launch_counts()
+        out = hl.hash_lookup([t if rows else t.t()], queries, res,
+                             precision)[0]
+        out.backward(g)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["hash_encode_fwd"] == 1 and counts["hash_encode_bwd"] \
+            == 1 and counts["segment_add"] == 0, counts
+        assert t.grad.shape == t.shape and t.grad.is_contiguous()
+        _close(out, ref, bound)
+        _close(t.grad.t() if rows else t.grad, ref_grad, grad_bound)
+
+
+def test_hash_lookup_refuses_what_the_kernels_do_not_take(dev):
+    """On the card a lookup the kernels cannot take raises; none runs the
+    plain composition."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, queries, res = _hash_case("occ static", gen, dev, n=1024)
+    with pytest.raises(ValueError, match="F = 33"):
+        hl.hash_lookup([torch.zeros((2 ** 21, 33), device=dev)], queries,
+                       res)
+
+
+def test_hash_lookup_graph_replay_matches_eager(dev):
+    """The occupancy cell's lookups of one branch (static, the dynamic
+    t-query with gradient and both warp queries without, the flow field's)
+    captured in one CUDA graph with their gradients, replayed on new
+    points and tables, equal to eager calls (within the atomics' order);
+    every lookup ran the kernels."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [_hash_case(c, gen, dev, n=65_536) for c in
+             ("occ static", "occ dynamic", "occ flow")]
+    params = [t.requires_grad_(True) for t, _, _ in cases]
+    xs = [q[0].x.clone() for _, q, _ in cases]
+    warps = [xs[1] + 0.01, xs[1] - 0.01]
+
+    def step():
+        outs = []
+        for i, (p, (_, q, res)) in enumerate(zip(params, cases)):
+            qq = [hl.Query(xs[i], 0, q[0].planes)]
+            outs += hl.hash_lookup([p.t()], qq, res, "bf16")
+        _, q, res = cases[1]
+        with torch.no_grad():
+            outs += hl.hash_lookup(
+                [params[1].t()] * 2,
+                [hl.Query(w, i, q[0].planes) for i, w in enumerate(warps)],
+                res)
+        loss = sum((o * o.sum(-1, keepdim=True)).sum() for o in outs)
+        return [o.detach() for o in outs] + list(
+            torch.autograd.grad(loss, params))
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()                      # warm-up
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kernels.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        static_out = step()
+    counts = kernels.launch_counts()
+    assert counts["hash_encode_fwd"] == 4 and counts["hash_encode_bwd"] \
+        == 3 and counts["segment_add"] == 0, counts
+    for _ in range(2):
+        with torch.no_grad():
+            for x in xs + warps:
+                x.copy_(x.roll(1000, 0))
+            for p in params:
+                p.mul_(-1.5)
+        graph.replay()
+        eager = step()
+        for got, ref in zip(static_out, eager):
+            _close(got, ref, ref)
+
+
 def test_training_step_launches_every_kernel(dev):
-    """Two steps of the joint trainer at toy size run through B1, B3 and
-    B4 and leave finite parameters; an eval of the trained field runs
-    through B3 and B5."""
+    """Two steps of the joint trainer at toy size run through the hash
+    lookup's kernels (its gradient B1's rows stage), B3 and B4 and leave
+    finite parameters; an eval of the trained field runs through B3 and
+    B5."""
     from nvsf_torch.config import NVSFConfig
     from nvsf_torch.data.synthetic import (SyntheticSceneSpec,
                                            make_synthetic_scene)
@@ -234,8 +409,12 @@ def test_training_step_launches_every_kernel(dev):
         m = tr.train_step(0, patch)
         assert np.isfinite(float(m["loss"]))
     torch.cuda.synchronize()
-    step = ("segment_add", "multihot_fwd", "multihot_bwd")
+    step = ("multihot_fwd", "multihot_bwd", "hash_encode_fwd",
+            "hash_encode_bwd")
     assert all(kernels.LAUNCHES[k] > 0 for k in step), kernels.LAUNCHES
+    # every table gradient of the step is a hash lookup's fused one: none
+    # ran B1's cols/vals entry (the plain composition's)
+    assert kernels.LAUNCHES["segment_add"] == 0, kernels.LAUNCHES
     assert all(torch.isfinite(p).all() for p in tr.field.parameters())
 
     from nvsf_torch.train.evaluate import evaluate

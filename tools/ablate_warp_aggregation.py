@@ -7,8 +7,10 @@ Builds the kernels twice: as the package builds them, and with
 -DNVSF_NO_WARP_AGGREGATION, where each lane issues its own atomics
 (nvsf_torch/csrc/warp_runs.cuh). Trains chip_smoke.py's joint LiDAR +
 camera configuration for one random and one patch epoch, captures the
-inputs of every B1 and B4 launch of one more step (as chip_smoke.py's
-"step" rows do), checks both builds against the plain versions on each,
+inputs of every B4 launch of one more step (as chip_smoke.py's "step"
+rows do; the step's hash gradients run B1's rows stage inside the hash
+lookup, ops/hash_lookup.py, so B1 has only phase 3's random inputs here),
+checks both builds against the plain versions on each,
 and times them in turns (aggregated, per-lane, per-lane, aggregated; CUDA
 events, mean of 10 launches each). Also times both builds on phase 3's
 random inputs of chip_smoke.py, where no neighbours repeat. Prints one line
@@ -36,14 +38,10 @@ VARIANTS = {"aggregated": kernels.NVCC_FLAGS,
 
 
 def _inputs(tr):
-    """(kernel, label, *wrapper arguments) for every captured B1 and B4
-    call of one step of ``tr``, then for phase 3's random B1 and B4
-    inputs."""
+    """(kernel, label, *wrapper arguments) for every captured B4 call of
+    one step of ``tr``, then for phase 3's random B1 and B4 inputs."""
     out = []
     calls = cs.capture_step_inputs(tr)
-    for i, (cols, vals, T, prec) in enumerate(calls["segment_add"]):
-        out.append(("segment_add", f"step #{i} M={vals.shape[1]} "
-                    f"F={vals.shape[0]} T={T} {prec}", cols, vals, T, prec))
     for i, (tables, cols, ws, g, W, need_dw) in enumerate(
             calls["multihot_bwd"]):
         out.append(("multihot_bwd", f"step #{i} {tuple(cols.shape)} W={W} "
