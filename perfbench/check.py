@@ -194,7 +194,7 @@ def numbers(run, names, other_steps=None, other_frame=None
         run.compared = {"reference": ref, "other": prog}
         for k in names:
             nums[k] = finite(TRAIN[k](prog, ref))
-    else:
+    elif run.mix["entry"] == "render_lidar":
         fns = frame_numbers(c)
         for fi, pano, ref in reference_frames(run):
             if other_frame is not None:
@@ -202,6 +202,9 @@ def numbers(run, names, other_steps=None, other_frame=None
                                    run.grid, fi)
             for k in names:
                 nums[k] = max(nums.get(k, 0.0), finite(fns[k](pano, ref)))
+    else:
+        nums = {k: finite(v)
+                for k, v in run.module.numbers(run, names).items()}
     return nums
 
 

@@ -164,7 +164,7 @@ def others(run, side: str):
 def readings(run, side: str) -> dict:
     from perfbench import check
     t0 = time.perf_counter()
-    steps, frame = others(run, side)
+    steps, frame = (None, None) if run.module else others(run, side)
     if run.mix["entry"] == "train":
         nums = check.numbers(run, list(check.TRAIN), steps)
         prog, ref = run.compared["other"], run.compared["reference"]
@@ -172,7 +172,7 @@ def readings(run, side: str) -> dict:
             nums[k] = fn(prog, ref)
         compared = {k: {n: v for n, v in d.items() if n != "error_rows"}
                     for k, d in run.compared.items()}
-    else:
+    elif run.mix["entry"] == "render_lidar":
         fns = {**check.frame_numbers(run.c), **_frame_extra(run.c)}
         nums, per_frame = {}, {}
         for fi, pano, ref in check.reference_frames(run):
@@ -184,6 +184,12 @@ def readings(run, side: str) -> dict:
             for k, v in per_frame[fi].items():
                 nums[k] = max(nums.get(k, 0.0), v)
         compared = {"frames": per_frame}
+    else:
+        if side != "program" and side not in run.module.SIDES:
+            raise ValueError(f"{side!r} is not one of the entry's sides "
+                             f"{run.module.SIDES}")
+        nums = run.module.numbers(run, list(run.module.NUMBERS), side)
+        compared = {}
     return {"side": side, "numbers": nums,
             "seconds": time.perf_counter() - t0, "compared": compared}
 

@@ -1,14 +1,17 @@
-"""The benchmark harness: finds a cell's configuration, traffic mix and
-per-layer metrics by name, builds the program under test (``nvsf_torch``'s
-``Trainer``) on the scene and weights made from the seed, drives the mix's
-entry (``train``: its checked start, then whole calls; ``render_lidar``:
-frames from the settled state the benchmark makes) through its warm-up
-and its measured or traced window, and hands what the window produced to
+"""The benchmark harness: finds a cell's configuration, traffic mix, limits,
+per-layer metrics and traffic entry by name, builds the program under test
+(``nvsf_torch``'s ``Trainer``) on the scene and weights made from the seed,
+drives the mix's entry (``train``: its checked start, then whole calls;
+``render_lidar``: frames from the settled state the benchmark makes; any
+other: its module's ``setup`` and units) through its warm-up and its
+measured or traced window, and hands what the window produced to
 ``check.py``.
 
-Everything that belongs to one configuration, mix, cell's limits or metric
-is a file of its own: ``configs/<name>.json``, ``traffic/<name>.json``,
-``limits/<cell>.json``, ``metrics/<name>.py``. Adding one needs no edit
+Everything that belongs to one configuration, mix, cell's limits, metric
+or entry is a file of its own: ``configs/<name>.json``,
+``traffic/<name>.json``, ``limits/<cell>.json``, ``metrics/<name>.py``,
+``entries/<entry>.py`` (its contract: ``entries/__init__.py``), with the
+entry's plain reference under ``reference/``. Adding one needs no edit
 here.
 """
 
@@ -79,6 +82,23 @@ def metric_reader(name: str, base: Path = HERE):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def entry_module(name: str, base: Path = HERE):
+    """``entries/<name>.py``, the module of a traffic entry other than
+    ``train`` and ``render_lidar``; a ``ValueError`` naming the entries
+    known where there is none."""
+    found = sorted(p.stem for p in (base / "entries").glob("*.py")
+                   if p.stem != "__init__")
+    if name not in found:
+        raise ValueError(f"unknown traffic entry {name!r}; known: "
+                         + ", ".join(["train", "render_lidar"] + found))
+    spec = importlib.util.spec_from_file_location(
+        "perfbench_entry_" + name.replace(".", "_").replace("-", "_"),
+        base / "entries" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def cell_metrics(man: dict, workload: str, kind: str) -> List[dict]:
@@ -169,6 +189,7 @@ class Run:
         self.work = {}          # counts of the window
         self.trace_data = None
         self.failed = 0
+        self.module = None      # entries/<entry>.py, for another entry
 
     def sync(self):
         if self.device.type == "cuda":
@@ -220,7 +241,8 @@ class Run:
                 self.tr.render_lidar_frame(int(next(self._frames)),
                                            use_ema=True)
         else:
-            raise ValueError(f"unknown traffic entry {entry!r}")
+            self.module = entry_module(entry)
+            self.module.setup(self)
         self._stage("warm-up")
         self.setup_s = time.perf_counter() - self.t_start
 
@@ -350,6 +372,8 @@ class Run:
         mix's frames; the steps or frames it ran."""
         if entry == "train":
             return self.train_call()
+        if self.module:
+            return self.module.unit(self)
         for _ in self.pass_frames:
             rendered.append(self.render_frame())
         return len(self.pass_frames)
@@ -372,7 +396,7 @@ class Run:
         self.work = {"wall_s": wall, "count": count}
         if entry == "train":
             self.work["rays"] = count * (c["num_rays_lidar"] + c["num_rays"])
-        else:
+        elif entry == "render_lidar":
             Hl, Wl = self.scene["panos"].shape[1:3]
             self.work["rays"] = count * Hl * Wl
             self.out["frames"] = rendered
@@ -389,10 +413,13 @@ class Run:
             if entry == "train":
                 count = sum(self.train_call()
                             for _ in range(self.mix["trace_calls"]))
-            else:
+            elif entry == "render_lidar":
                 for _ in range(self.mix["trace_frames"]):
                     rendered.append(self.render_frame())
                 count = len(rendered)
+            else:
+                count = sum(self.module.unit(self)
+                            for _ in range(self.mix["trace_units"]))
             self.sync()
         self._finish_window(entry, count, win.wall_s, rendered)
         self.work.update(
@@ -431,11 +458,14 @@ def end_to_end(run: Run, metrics: List[dict]) -> Dict[str, dict]:
     measure is named by its name up to the first dot
     (``train_rays_per_s.dense`` is the training rate of another cell)."""
     vals = {"setup_s": run.setup_s}
-    rate = run.work["rays"] / run.work["wall_s"]
-    if run.mix["entry"] == "train":
-        vals["train_rays_per_s"] = rate
+    if run.module:
+        vals = {**run.module.measures(run), **vals}
     else:
-        vals["render_rays_per_s"] = rate
+        rate = run.work["rays"] / run.work["wall_s"]
+        if run.mix["entry"] == "train":
+            vals["train_rays_per_s"] = rate
+        else:
+            vals["render_rays_per_s"] = rate
     out = {}
     for m in metrics:
         base = m["name"].split(".", 1)[0]

@@ -5,10 +5,13 @@
 ``BENCHMARK.json`` names the cell's configuration (``perfbench/configs/``)
 and traffic mix (``perfbench/traffic/``); its limits are
 ``perfbench/limits/<cell>.json``; the per-layer metrics are the readers in
-``perfbench/metrics/``. The run makes the scene and the initial
-weights on the card from the seed, builds the program's ``Trainer``,
-drives the mix's checked start (training) or loads the benchmark's
-settled state (render) and warms up (set-up), then measures for
+``perfbench/metrics/``; a mix's entry other than ``train`` and
+``render_lidar`` is the module ``perfbench/entries/<entry>.py``, with its
+plain reference under ``perfbench/reference/``. The run makes the scene
+and the initial weights on the card from the seed, builds the program's
+``Trainer``, drives the mix's checked start (training), loads the
+benchmark's settled state (render) or runs the entry module's set-up, and
+warms up (set-up), then measures for
 ``--seconds`` (``--trace 0``: the end-to-end metrics) or traces a short
 window under ``torch.profiler`` (``--trace 1``: the per-layer metrics), and
 checks what the window produced against the plain float32 reference.
@@ -40,7 +43,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "nvsf_tpu")
 def set_environment(root: Path = ROOT) -> None:
     """Build and kernel caches at fixed paths inside the checkout, so that
     only a checkout's first run builds; libraries that could load JAX are
-    told not to; two CPU threads for the host's thread pools, so that the
+    told not to; one CPU thread for the host's thread pools, so that the
     run's own load on a shared host stays small. Call before torch and
     numpy are imported."""
     build = root / "build"
@@ -48,7 +51,7 @@ def set_environment(root: Path = ROOT) -> None:
     os.environ["TORCH_EXTENSIONS_DIR"] = str(build / "torch_extensions")
     os.environ["USE_FLAX"] = "0"
     for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
-        os.environ[k] = "2"
+        os.environ[k] = "1"
 
 
 def forbidden_modules():

@@ -103,15 +103,26 @@ def test_config_files(man):
             assert key in d
 
 
-def test_every_cell_has_limits_the_check_can_read(man):
+def check_limits_readable(man, base=harness.HERE):
+    """Each cell's limits name only numbers the check reads for its entry:
+    ``check.TRAIN``, the frame numbers, or an entry module's ``NUMBERS``."""
     from perfbench import check
     for w in man["workloads"]:
-        lim = harness.limits_file(w["name"])
-        entry = harness.traffic_file(w["traffic"])["entry"]
-        c = harness.run_config(harness.config_file(man, w["config"]))
-        known = check.TRAIN if entry == "train" else check.frame_numbers(c)
+        lim = harness.limits_file(w["name"], base)
+        entry = harness.traffic_file(w["traffic"], base)["entry"]
+        if entry == "train":
+            known = check.TRAIN
+        elif entry == "render_lidar":
+            known = check.frame_numbers(harness.run_config(
+                harness.config_file(man, w["config"], base.parent)))
+        else:
+            known = harness.entry_module(entry, base).NUMBERS
         assert lim and set(lim) <= set(known), (w["name"], lim)
         assert all(v > 0 for v in lim.values())
+
+
+def test_every_cell_has_limits_the_check_can_read(man):
+    check_limits_readable(man)
 
 
 def test_new_files_are_found_without_edits(tmp_path, man):

@@ -139,6 +139,18 @@ def test_a_close_pops_back_to_its_open():
                       (), ()]
 
 
+def test_a_window_of_another_entry_with_markers_is_read():
+    """An entry module's window that ran the program's markers reads as a
+    training window does: a new entry's span readers are new files."""
+    run = _window()
+    run.mix = {"entry": "density_query"}
+    train = _window()
+    assert all(_read(n, run) == pytest.approx(_read(n, train))
+               for n in NAMES)
+    assert _read("encode_ms.train", run) == pytest.approx(
+        (2 + 40 + 2 + 70) / 2e3)
+
+
 def test_a_window_without_markers_reads_nothing():
     run = _window()
     run.trace_data.device_ops = [o for o in run.trace_data.device_ops
