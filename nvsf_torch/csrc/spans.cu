@@ -1,6 +1,7 @@
-// Span markers of the training path: one empty one-thread kernel for each
-// end of each span that nvsf_torch/train/profiler.py names (SPANS, in the
-// order of NVSF_SPANS below; a span's dots are underscores here).
+// Span markers of the training path and of the U-Net refine step: one
+// empty one-thread kernel for each end of each span that
+// nvsf_torch/train/profiler.py names (SPANS, in the order of NVSF_SPANS
+// below; a span's dots are underscores here).
 //
 // A span's open and close enqueue its two kernels on the caller's stream,
 // so a device trace alone tells the spans apart by kernel name
@@ -16,7 +17,8 @@
 
 #define NVSF_SPANS(X)                                                     \
   X(sample) X(render) X(encode_hash) X(encode_planes) X(encode_flow)      \
-  X(mlp) X(loss) X(backward) X(optim) X(refresh)
+  X(mlp) X(loss) X(backward) X(optim) X(refresh) X(unet_down)           \
+  X(unet_attn) X(unet_up)
 
 #define NVSF_MARKERS(ident)                                  \
   extern "C" __global__ void nvsf_span_open_##ident() {}     \

@@ -21,6 +21,10 @@ across unchanged. As in the reference implementation:
   - training attention adds -1e12 to logits dropped by a Bernoulli(0.1)
     draw.
 
+The forward is three spans (``train/profiler.py``), each with its
+backward: ``unet.down`` (the in-conv and the four downs), ``unet.attn``
+and ``unet.up`` (the four ups and the out-conv).
+
 Every random draw of a training forward can be injected through
 ``draws``: ``{site: mask}`` with ``downI.drop1`` / ``downI.drop2`` /
 ``upI.drop1`` / ``upI.drop2`` Dropout2d keep masks [B, C] and ``attn`` the
@@ -34,6 +38,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from nvsf_torch.train.profiler import span
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -178,15 +184,22 @@ class UNet(nn.Module):
 
     def forward(self, x, draws: Optional[dict] = None, generator=None):
         d = _Draws(draws, generator, x.device)
-        h = _conv(x, self.inc)
-        feats = [h]
-        for i in range(1, 5):
-            h = getattr(self, f"down{i}")(F.max_pool2d(h, 2), f"down{i}", d)
-            feats.append(h)
-        h = self.attn(feats[4], d)
-        for i, skip in enumerate((feats[3], feats[2], feats[1], feats[0])):
-            h = F.interpolate(h, scale_factor=2, mode="bilinear",
-                              align_corners=False)
-            h = torch.cat([skip, _pad_to(h, skip)], dim=1)
-            h = getattr(self, f"up{i + 1}")(h, f"up{i + 1}", d)
-        return torch.sigmoid(self.outc(h))
+        dev = x.device
+        with span("unet.down", dev, backward=True) as s:
+            h = _conv(x, self.inc)
+            feats = [h]
+            for i in range(1, 5):
+                h = getattr(self, f"down{i}")(F.max_pool2d(h, 2), f"down{i}",
+                                              d)
+                feats.append(h)
+            feats = s.out(feats)
+        with span("unet.attn", dev, backward=True) as s:
+            h = s.out(self.attn(feats[4], d))
+        with span("unet.up", dev, backward=True) as s:
+            for i, skip in enumerate((feats[3], feats[2], feats[1],
+                                      feats[0])):
+                h = F.interpolate(h, scale_factor=2, mode="bilinear",
+                                  align_corners=False)
+                h = torch.cat([skip, _pad_to(h, skip)], dim=1)
+                h = getattr(self, f"up{i + 1}")(h, f"up{i + 1}", d)
+            return s.out(torch.sigmoid(self.outc(h)))

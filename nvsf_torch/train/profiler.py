@@ -10,20 +10,20 @@ host ops, as an aten op is, not user annotations: the profiler would echo
 an annotation on the device's timeline as one span over the kernels it
 launched, which a reader of device time takes for a device op.
 
-``span(name, device)`` marks a span of the training path (``SPANS``) on
-the device: its open and its close each launch a one-thread marker kernel
-named after it (``nvsf_span_open_encode_hash``; ``csrc/spans.cu``) on the
-current stream, so a CUDA graph captured around the span replays its
-markers, and a device trace alone tells the spans apart. On the CPU the
-markers are zero-length host ranges ``nvsf_span:open:<name>`` /
-``nvsf_span:close:<name>``, made only while a profiler records. With
-``backward=True`` the span's backward is marked too: ``s.out(outputs)``
-passes the span's outputs through an identity whose backward opens the
-span, and a token made at the span's open closes it. A device's autograd
-nodes run newest first, so the token's node runs right after every node
-that the span's forward made: the module's backward, and the
-recomputation that ``torch.utils.checkpoint`` runs inside it, are charged
-to the module.
+``span(name, device)`` marks a span of the training path or of the U-Net
+refine step (``SPANS``) on the device: its open and its close each launch
+a one-thread marker kernel named after it (``nvsf_span_open_encode_hash``;
+``csrc/spans.cu``) on the current stream, so a CUDA graph captured around
+the span replays its markers, and a device trace alone tells the spans
+apart. On the CPU the markers are zero-length host ranges
+``nvsf_span:open:<name>`` / ``nvsf_span:close:<name>``, made only while a
+profiler records. With ``backward=True`` the span's backward is marked
+too: ``s.out(outputs)`` passes the span's outputs through an identity
+whose backward opens the span, and a token made at the span's open closes
+it. A device's autograd nodes run newest first, so the token's node runs
+right after every node that the span's forward made: the module's
+backward, and the recomputation that ``torch.utils.checkpoint`` runs
+inside it, are charged to the module.
 
 ``span_times(events)`` reduces a trace to self and inclusive times by
 span; ``device_trace`` writes the Chrome trace and that reduction.
@@ -46,10 +46,12 @@ from torch.utils import _pytree as pytree
 
 from nvsf_torch.ops import kernels
 
-# the spans of the training path, in the order of csrc/spans.cu's
-# NVSF_SPANS (a marker kernel's name spells a dot as an underscore)
+# the spans of the training path and of the U-Net refine step, in the
+# order of csrc/spans.cu's NVSF_SPANS (a marker kernel's name spells a dot
+# as an underscore)
 SPANS = ("sample", "render", "encode.hash", "encode.planes", "encode.flow",
-         "mlp", "loss", "backward", "optim", "refresh")
+         "mlp", "loss", "backward", "optim", "refresh", "unet.down",
+         "unet.attn", "unet.up")
 _INDEX = {n: i for i, n in enumerate(SPANS)}
 NONE = "(none)"
 _MARKER = re.compile(r"nvsf_span[_:](open|close)[_:]([a-z_.]+)")
@@ -138,7 +140,7 @@ class PhaseTimers:
 
 
 # ----------------------------------------------------------------------
-# spans of the training path
+# spans of the training path and the refine step
 # ----------------------------------------------------------------------
 
 def mark(name: str, is_open: bool, device: torch.device) -> None:

@@ -23,6 +23,7 @@ import torch
 from nvsf_torch.models.unet import UNet
 from nvsf_torch.train.graphs import Program
 from nvsf_torch.train.losses import bce_with_logits
+from nvsf_torch.train.profiler import span
 
 
 def onecycle_lr(max_lr: float, total_steps: int, pct_start: float = 0.3,
@@ -114,9 +115,14 @@ class RefineSteps:
     the second under ``set_sync_debug_mode("error")``: all three are steps
     of the stage, and the generator is registered with the graph. The
     warm-ups and the capture time the convolutions' algorithms
-    (``autotuned_convolutions``); the replays run what they chose.
+    (``autotuned_convolutions``); the replays run what they chose. The
+    eager steps' cached memory goes back to the card before the capture.
     ``graphed=False`` steps eagerly, the check the graph is held to; draws
-    injected into a step (``draws``) exist on that path only."""
+    injected into a step (``draws``) exist on that path only.
+
+    ``run(start, stop)`` takes a slice of the schedule, the stage's loop
+    (``refine_raydrop``); ``out`` holds the last step's U-Net output (on
+    the card, the graph's buffer, which the next replay overwrites)."""
 
     def __init__(self, unet: UNet, x_full: torch.Tensor, gt: torch.Tensor,
                  *, steps: int, lr: float, graphed: Optional[bool] = None):
@@ -149,16 +155,26 @@ class RefineSteps:
         return out + list(self.unet.buffers())
 
     def body(self, draws: Optional[dict] = None) -> torch.Tensor:
-        """One step's device work; returns its loss (a device scalar)."""
+        """One step's device work; returns its loss (a device scalar) and
+        keeps the U-Net's output in ``out``. Its spans: ``loss`` (the box
+        mask; the BCE, forward and backward), ``optim`` (zero-grad; Adam),
+        the U-Net's own and ``backward`` around the backward."""
         d = draws or {}
-        x = self.x_full * random_box_mask(
-            self.x_full.shape, generator=self.generator, draws=d.get("mask"),
-            device=self.x_full.device)
-        self.opt.zero_grad(set_to_none=False)
-        loss = bce_with_logits(self.unet(x, d.get("unet"), self.generator),
-                               self.gt).mean()
-        loss.backward()
-        self.opt.step()
+        dev = self.x_full.device
+        with span("loss", dev):
+            x = self.x_full * random_box_mask(
+                self.x_full.shape, generator=self.generator,
+                draws=d.get("mask"), device=dev)
+        with span("optim", dev):
+            self.opt.zero_grad(set_to_none=False)
+        out = self.unet(x, d.get("unet"), self.generator)
+        self.out = out.detach()
+        with span("loss", dev, backward=True) as s:
+            loss = s.out(bce_with_logits(out, self.gt).mean())
+        with span("backward", dev):
+            loss.backward()
+        with span("optim", dev):
+            self.opt.step()
         return loss.detach()
 
     def step(self, i: int, draws: Optional[dict] = None) -> torch.Tensor:
@@ -175,7 +191,48 @@ class RefineSteps:
         if self.program.graph is not None:
             return self.program()
         with autotuned_convolutions():
+            if not self.program.warming:
+                # the eager steps' freed activations stay cached outside
+                # the graph's pool, which the capture cannot draw on: at
+                # the stage's batch (every frame, [64, 3, 66, 1030]) the
+                # two copies would not fit the card together
+                torch.cuda.synchronize(self.x_full.device)
+                torch.cuda.empty_cache()
             return self.program()
+
+    def run(self, start: int, stop: int, *, log_fn=None,
+            log_every: int = 50, draws: Optional[list] = None) -> list:
+        """Steps ``start`` to ``stop - 1`` of the schedule with the U-Net in
+        training mode (in eval mode again after). Returns the loss of each
+        ``log_every``-th step, read on the host there alone. ``draws[i]``
+        replaces step i's draws (the eager path only): ``{"mask":
+        random_box_mask draws, "unet": UNet draws}``."""
+        losses = []
+        self.unet.train()
+        try:
+            for i in range(start, stop):
+                loss = self.step(i, draws[i] if draws is not None else None)
+                if i % log_every == 0:
+                    lv = float(loss)
+                    losses.append(lv)
+                    if log_fn:
+                        log_fn(f"[refine] iter {i} loss {lv:.5f}")
+        finally:
+            self.unet.eval()
+        return losses
+
+
+def refine_steps(unet: UNet, unet_input, raydrop_gt, *, steps: int = 1000,
+                 lr: float = 1e-3, graphed: Optional[bool] = None
+                 ) -> RefineSteps:
+    """The refine stage's ``RefineSteps`` on ``unet``'s device, from
+    (rendered raydrop, intensity, depth) ``unet_input`` [B, 3, H, W] to the
+    GT raydrop ``raydrop_gt`` [B, 1, H, W] (arrays or tensors), over a
+    ``steps``-step schedule at peak rate ``lr``."""
+    dev = next(unet.parameters()).device
+    x_full = torch.as_tensor(unet_input, dtype=torch.float32, device=dev)
+    gt = torch.as_tensor(raydrop_gt, dtype=torch.float32, device=dev)
+    return RefineSteps(unet, x_full, gt, steps=steps, lr=lr, graphed=graphed)
 
 
 def refine_raydrop(unet: UNet, unet_input: np.ndarray,
@@ -183,30 +240,11 @@ def refine_raydrop(unet: UNet, unet_input: np.ndarray,
                    lr: float = 1e-3, log_fn=None,
                    log_every: int = 50, draws: Optional[list] = None):
     """Train ``unet`` in place on (rendered raydrop, intensity, depth) ->
-    GT raydrop: ``unet_input`` [B, 3, H, W], ``raydrop_gt`` [B, 1, H, W],
-    ``steps`` steps of ``RefineSteps`` (graphed on the card). Returns the
-    loss at every ``log_every``-th step, read on the host there alone.
-    ``draws[i]`` replaces step i's draws (the CPU only): ``{"mask":
-    random_box_mask draws, "unet": UNet draws}``."""
-    dev = next(unet.parameters()).device
-    x_full = torch.as_tensor(np.asarray(unet_input), dtype=torch.float32,
-                             device=dev)
-    gt = torch.as_tensor(np.asarray(raydrop_gt), dtype=torch.float32,
-                         device=dev)
-    rs = RefineSteps(unet, x_full, gt, steps=steps, lr=lr)
-    losses = []
-    unet.train()
-    try:
-        for i in range(steps):
-            loss = rs.step(i, draws[i] if draws is not None else None)
-            if i % log_every == 0:
-                lv = float(loss)
-                losses.append(lv)
-                if log_fn:
-                    log_fn(f"[refine] iter {i} loss {lv:.5f}")
-    finally:
-        unet.eval()
-    return losses
+    GT raydrop: every step of ``refine_steps``'s schedule (graphed on the
+    card) through ``RefineSteps.run``, which returns the logged losses."""
+    return refine_steps(unet, unet_input, raydrop_gt, steps=steps,
+                        lr=lr).run(0, steps, log_fn=log_fn,
+                                   log_every=log_every, draws=draws)
 
 
 @torch.no_grad()

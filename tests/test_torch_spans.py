@@ -1,9 +1,10 @@
 """The training path's spans (``nvsf_torch/train/profiler.py``) on the
-CPU, at toy size: an eager step of each mode under ``torch.profiler``
-marks every span it runs, forward and backward, balanced and nested; the
-host spans never wait for the device and record only under a profiler;
-``device_trace`` writes its reduction beside the Chrome trace. The
-marker kernels themselves run on the card (``tests/test_torch_cuda.py``).
+CPU, at toy size: an eager step of each mode, and a U-Net refine step,
+under ``torch.profiler`` marks every span it runs, forward and backward,
+balanced and nested; the host spans never wait for the device and record
+only under a profiler; ``device_trace`` writes its reduction beside the
+Chrome trace. The marker kernels themselves run on the card
+(``tests/test_torch_cuda.py``).
 """
 
 import json
@@ -16,7 +17,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from nvsf_torch.config import NVSFConfig
 from nvsf_torch.data.synthetic import SyntheticSceneSpec, make_synthetic_scene
+from nvsf_torch.models.unet import UNet
 from nvsf_torch.train import profiler as P
+from nvsf_torch.train.refine import refine_steps
 from nvsf_torch.train.trainer import Trainer
 
 from test_torch_models import one_torch_thread  # noqa: F401
@@ -122,6 +125,27 @@ def test_dense_step_remat_recomputes_inside_the_backward(chunks):
         # span of the density query's module
         assert any(k == "open" and n == "encode.hash" and st[-1] == "mlp"
                    for k, n, st in marks if "backward" in st)
+
+
+def test_refine_step_marks_its_spans_in_order():
+    """One eager refine step of a small U-Net: the box mask (``loss``),
+    zero-grad (``optim``), the U-Net's three spans, the BCE (``loss``),
+    the backward (``backward``, reopening the loss's span and the U-Net's,
+    newest first) and Adam (``optim``), in that order, nested and
+    balanced."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((1, 3, 16, 32), generator=g)
+    rs = refine_steps(UNet(channels=8, generator=g), x,
+                      (x[:, :1] > 0.5).float(), steps=10, graphed=False)
+    events = _traced(lambda: rs.run(0, 1))
+    _check_balanced(P.span_times(events), {
+        "loss", "optim", "backward", "unet.down", "unet.attn", "unet.up"})
+    opens = [(n, st) for k, n, st in _markers(events) if k == "open"]
+    bwd = ("backward",)
+    assert opens == [("loss", ()), ("optim", ()), ("unet.down", ()),
+                     ("unet.attn", ()), ("unet.up", ()), ("loss", ()),
+                     ("backward", ()), ("loss", bwd), ("unet.up", bwd),
+                     ("unet.attn", bwd), ("unet.down", bwd), ("optim", ())]
 
 
 def test_span_times_charges_device_ops_inside_their_spans():
